@@ -1,0 +1,196 @@
+"""The whole greedy loop of a batch of lanes: CUDA kernel and plain version.
+
+Counterpart of pomfret_tpu/kernels/engine_fused3.py. A lane is one
+(gap, direction); every argument carries a leading G (lane) axis:
+
+    ids (G,R,S) int8|int32 mer ids, -1 = absent; has_mmr, seed_ok (G,R)
+    bool; hp_init (G,R) int32; n_reads, n_sites, q_break, min0, max0, cov,
+    n_cand, max_iters (G,) int32; D (mer-id capacity) and nc_cap
+    (candidate-slot capacity) are ints.
+
+Both functions return (hp (G,R) int32, stats (G,8) int32) with stats rows
+[iterations, q_last, failed, commits, 0, 0, 0, 0]. The iteration count is
+the lane's own (the Pallas kernel reported its lane block's).
+
+- `run_batch_fused3` is the wrapper of the hand-written kernel
+  (csrc/loop_kernel.cu). It launches the kernel for CUDA tensors and runs
+  `loop_plain` only for tensors on the CPU.
+- `loop_plain` is the same loop in plain PyTorch, batched by hand as
+  engine_fused.run_batch_fused_core batches run_direction_core
+  (engine_jax.py:340-444). Lanes leave the loop one by one, as vmap's
+  while-loop rule freezes them: a lane that has converged changes nothing
+  while the others iterate.
+
+Scores are summed in f64 and rounded once to f32: the sum is then exact
+(see loop_kernel.cu) and the kernel, whatever its reduction order, agrees
+with this version bit for bit.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from .engine_fused import _range_from_seed_b, _seed_count_table_b
+
+MAX_NC_CAP = 1024  # the kernel keeps 5 words per candidate slot in shared memory
+
+
+def loop_plain(ids, has_mmr, hp_init, seed_ok, n_reads, n_sites, q_break,
+               min0, max0, cov, n_cand, max_iters, D: int, nc_cap: int):
+    """Plain PyTorch greedy loop (see the module docstring); runs on the
+    device its tensors are on. Each iteration works on the lanes still
+    active and writes only theirs back, so a lane that has converged keeps
+    its state while the others iterate."""
+    G, R, S = ids.shape
+    dev = ids.device
+    i32, i64, f32 = torch.int32, torch.int64, torch.float32
+    cnt = _seed_count_table_b(ids, hp_init, seed_ok, has_mmr, D)
+    hp = hp_init.to(i32).clone()
+    q_last = torch.zeros(G, dtype=i32, device=dev)
+    failed = torch.zeros_like(q_last)
+    it = torch.zeros_like(q_last)
+    ncom = torch.zeros_like(q_last)
+    q = torch.arange(R, device=dev, dtype=i64)[None, :]
+    slots = torch.arange(nc_cap, device=dev, dtype=i64)[None, :]
+    site = torch.arange(S, device=dev, dtype=i32)[None, :]
+    n_slots = torch.clamp(n_cand.to(i64), max=nc_cap)
+    while True:
+        active = (q_last < q_break) & (failed <= 10) & (it < max_iters)
+        L = torch.nonzero(active).squeeze(1)         # the active lanes
+        n = L.numel()
+        if n == 0:
+            break
+        ar = torch.arange(n, device=dev)
+        c = cnt[L]                                   # (n, 2D, S)
+        c4 = c.view(n, D, 2, S)
+        s0 = c4[:, :, 0].sum(dim=1)                  # integer-valued, exact
+        s1 = c4[:, :, 1].sum(dim=1)
+        min_i, max_i = _range_from_seed_b(s0 + s1, cov[L], min0[L], max0[L],
+                                          n_sites[L])
+
+        # --- candidates: first n_cand untagged rows >= q_last
+        #     (blockjoin.c:4037-4051) ---
+        h = hp[L]
+        elig = ((h != 0) & (h != 1) & (q >= q_last[L, None].to(i64))
+                & (q < n_reads[L, None].to(i64)))
+        rank = torch.cumsum(elig.to(i64), dim=1)
+        sel = elig & (rank <= n_slots[L, None])
+        slot = torch.where(sel, rank - 1, nc_cap)  # unselected -> spill slot
+        cand = torch.full((n, nc_cap + 1), -1, dtype=i64, device=dev)
+        cand.scatter_(1, slot, q.expand(n, R))
+        cand = cand[:, :nc_cap]
+        valid = cand >= 0
+        crow = cand.clamp(min=0)
+
+        # --- scoring (blockjoin.c:3487-3656) ---
+        cids = ids[L[:, None], crow].to(i64)                  # (n, NC, S)
+        covered = (cids >= 0) & (cids < D) & valid[:, :, None]
+        idc = torch.where(covered, cids, 0)
+        c0 = c[:, 0::2].gather(1, idc)
+        c1 = c[:, 1::2].gather(1, idc)
+        in_range = (site >= min_i[:, None]) & (site < max_i[:, None])
+        found = ((c0 + c1) > 0) & covered & in_range[:, None, :]
+        t0 = s0[:, None, :]
+        t1 = s1[:, None, :]
+        con0 = found & (t0 > 0)
+        con1 = found & (t1 > 0)
+        r0 = torch.where(con0, c0 / torch.clamp(t0, min=1.0), 0.0)
+        r1 = torch.where(con1, c1 / torch.clamp(t1, min=1.0), 0.0)
+        score0 = r0.sum(dim=2, dtype=torch.float64).to(f32)
+        score1 = r1.sum(dim=2, dtype=torch.float64).to(f32)
+        l0 = con0.sum(dim=2) + (r0 > 0).sum(dim=2)   # score_l double count
+        l1 = con1.sum(dim=2) + (r1 > 0).sum(dim=2)
+
+        # --- decide + commit best (blockjoin.c:3645-3765) ---
+        diff = (score0 - score1).abs()
+        tag_ok = ~((diff < 3.0) & ((l0 < 3) | (l1 < 3)))
+        tag = torch.where(score0 > score1, 0, 1).to(i32)
+        commit_ok = tag_ok & valid & has_mmr[L].gather(1, crow)
+        eff = torch.where(commit_ok, diff, -1.0)
+        best = eff.amax(dim=1)
+        best_k = torch.where(commit_ok & (eff == best[:, None]), slots,
+                             -1).amax(dim=1)
+        do_commit = best >= 0
+        bk = best_k.clamp(min=0)
+        rid = cand.gather(1, bk[:, None])[:, 0]
+        t = tag.gather(1, bk[:, None])[:, 0]
+        rids = cids[ar, bk]                                    # (n, S)
+        upd = (rids >= 0) & (rids < D) & do_commit[:, None]
+        row = 2 * torch.where(upd, rids, 0) + t[:, None].to(i64)
+        c.scatter_add_(1, row[:, None, :], upd[:, None, :].to(f32))
+        cnt[L] = c
+        h[ar[do_commit], rid[do_commit]] = t[do_commit]
+        hp[L] = h
+
+        # --- failure bookkeeping (blockjoin.c:4046-4070) ---
+        failed[L] = torch.where(do_commit, 0, failed[L] + 1)
+        q_last[L] = torch.where(do_commit, q_last[L], q_last[L] + n_cand[L])
+        ncom[L] += do_commit.to(i32)
+        it[L] += 1
+    zeros = torch.zeros_like(it)
+    stats = torch.stack([it, q_last, failed, ncom, zeros, zeros, zeros,
+                         zeros], dim=1).to(i32)
+    return hp, stats
+
+
+def _check(name, t, dtypes, shape):
+    if t.dtype not in dtypes:
+        raise TypeError(f"{name}: dtype {t.dtype}, expected one of {dtypes}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {shape}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def run_batch_fused3(ids, has_mmr, hp_init, seed_ok, n_reads, n_sites,
+                     q_break, min0, max0, cov, n_cand, max_iters,
+                     D: int, nc_cap: int):
+    """Whole greedy loop for every lane; returns (hp, stats).
+
+    CUDA tensors: seeds the count table (plain torch) and launches
+    loop_kernel.cu once on the current stream; the launch is counted in
+    `run_batch_fused3.launches`. CPU tensors: loop_plain. Any other device
+    raises. A build or launch failure raises; nothing falls back."""
+    dev = ids.device
+    if dev.type == "cpu":
+        return loop_plain(ids, has_mmr, hp_init, seed_ok, n_reads, n_sites,
+                          q_break, min0, max0, cov, n_cand, max_iters, D,
+                          nc_cap)
+    if dev.type != "cuda":
+        raise ValueError(f"run_batch_fused3: unsupported device {dev}")
+    G, R, S = ids.shape
+    if not 0 < nc_cap <= MAX_NC_CAP:
+        raise ValueError(f"nc_cap={nc_cap} outside (0, {MAX_NC_CAP}]")
+    _check("ids", ids, (torch.int8, torch.int32), (G, R, S))
+    for name, t in (("has_mmr", has_mmr), ("seed_ok", seed_ok)):
+        _check(name, t, (torch.bool,), (G, R))
+    _check("hp_init", hp_init, (torch.int32,), (G, R))
+    scal = torch.stack([min0, max0, cov, n_sites, n_reads, q_break, n_cand,
+                        max_iters], dim=1)
+    _check("scal", scal, (torch.int32,), (G, 8))
+    for t in (has_mmr, hp_init, seed_ok, scal):
+        if t.device != dev:
+            raise ValueError(f"all inputs must be on {dev}, got {t.device}")
+
+    from ._build import get_lib
+    lib = get_lib()
+    cnt = _seed_count_table_b(ids, hp_init, seed_ok, has_mmr, D).contiguous()
+    sums = torch.empty((G, 2, S), dtype=torch.float32, device=dev)
+    hp = torch.empty((G, R), dtype=torch.int32, device=dev)
+    stats = torch.empty((G, 8), dtype=torch.int32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        rc = lib.pomfret_loop_launch(
+            ids.element_size(), ids.data_ptr(), has_mmr.data_ptr(),
+            scal.data_ptr(), hp_init.data_ptr(), cnt.data_ptr(),
+            sums.data_ptr(), hp.data_ptr(), stats.data_ptr(),
+            G, R, S, D, nc_cap, ctypes.c_void_p(stream))
+    if rc != 0:
+        raise RuntimeError("loop_kernel launch failed: "
+                           f"{lib.pomfret_error_string(rc).decode()} ({rc})")
+    run_batch_fused3.launches += 1
+    return hp, stats
+
+
+run_batch_fused3.launches = 0

@@ -1,0 +1,291 @@
+"""Batched gap execution on one device.
+
+Counterpart of pomfret_tpu/parallel/batch.py for a single GPU (or the CPU):
+the packed numpy batch (GapBatch, equal to the JAX package's) becomes
+device tensors (batch_tensors), runs through the engine (_run_batch), and
+comes back as a (G, R) tag matrix. Each in-flight group has its own CUDA
+stream; its result is read once the event recorded after its download has
+completed.
+
+Engines: "cuda" is the hand-written loop kernel (engine_fused3.
+run_batch_fused3) and raises on a CPU tensor; "torch" is the plain loop
+(engine_fused3.loop_plain) on whatever device the batch was given.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Dict, Optional, Sequence
+
+import numpy as np
+import torch
+
+from ..kernels.engine_fused3 import loop_plain, run_batch_fused3
+from ..kernels.engine_torch import GapDeviceData, _round_up
+
+LANE_MULTIPLE = 32  # G pads to a multiple of this; _bucket_lanes gives pow2*32
+
+
+@dataclass
+class GapBatch:
+    """Stacked per-(gap,direction) arrays, padded to common (R, S, D).
+
+    The mer-id grid ships dense (`ids` (G,R,S)) or as 128-aligned runs
+    (`blk` (G,R,CB) uint8 of id+1 + `b0` (G,R) int32, ids None), which the
+    device densifies (densify_runs)."""
+    ids: Optional[np.ndarray]  # (G, R, S) int8/int32, or None (runs mode)
+    has_mmr: np.ndarray    # (G, R) bool
+    hp_init: np.ndarray    # (G, R) int32
+    seed_ok: np.ndarray    # (G, R) bool
+    perm: np.ndarray       # (G, R) int32 — device row -> original read id
+    n_reads: np.ndarray    # (G,) int32
+    n_sites: np.ndarray    # (G,) int32
+    q_break: np.ndarray    # (G,) int32
+    min0: np.ndarray       # (G,) int32
+    max0: np.ndarray       # (G,) int32
+    cov: np.ndarray        # (G,) int32
+    n_cand: np.ndarray     # (G,) int32
+    D: int
+    nc_cap: int
+    S: int = 0             # padded site count (== ids.shape[2] when dense)
+    blk: Optional[np.ndarray] = None  # (G, R, CB) uint8, id+1, 0 = absent
+    b0: Optional[np.ndarray] = None   # (G, R) int32 first block, -1 = none
+
+    def __post_init__(self):
+        if self.ids is not None and not self.S:
+            self.S = self.ids.shape[2]
+
+    @property
+    def shape3(self):
+        """(G, R, S) independent of layout."""
+        g, r = self.has_mmr.shape
+        return g, r, self.S
+
+
+def pack_gap_batch(datas: Sequence[GapDeviceData], covs: Sequence[int],
+                   n_cand: int, pad_g: Optional[int] = None) -> GapBatch:
+    """Stack lanes into one batch (pomfret_tpu.parallel.batch.
+    pack_gap_batch). G pads to `pad_g`, else to a multiple of 32; pad
+    lanes have n_reads = q_break = 0, so they are inactive from iteration
+    0."""
+    R = max(d.R for d in datas)
+    S = max(d.S for d in datas)
+    # dictionary capacity buckets to powers of two (>= 4)
+    need = max(d.max_d for d in datas)
+    D = 4
+    while D < need:
+        D *= 2
+    nc_cap = _round_up(max(n_cand, 1), 16)
+    G = pad_g or _round_up(len(datas), LANE_MULTIPLE)
+    has_mmr = np.zeros((G, R), dtype=bool)
+    hp_init = np.full((G, R), 2, dtype=np.int32)
+    seed_ok = np.zeros((G, R), dtype=bool)
+    perm = np.full((G, R), -1, dtype=np.int32)
+    sc = np.zeros((6, G), dtype=np.int32)
+    # runs mode when every real lane carries the compact layout, the ids fit
+    # id+1 in uint8 (actual need, not the bucketed D) and S is 128-aligned
+    runs = (need <= 254 and S % 128 == 0
+            and all(d.blk is not None for d in datas))
+    ids = blk = b0 = None
+    if runs:
+        CB = max(128, max(d.blk.shape[1] for d in datas))
+        blk = np.zeros((G, R, CB), dtype=np.uint8)
+        b0 = np.full((G, R), -1, dtype=np.int32)
+    else:
+        ids = np.full((G, R, S), -1,
+                      dtype=np.int8 if D <= 127 else np.int32)
+    for g, d in enumerate(datas):
+        r, s = d.R, d.S
+        if runs:
+            blk[g, :r, : d.blk.shape[1]] = d.blk
+            b0[g, :r] = d.b0
+        else:
+            ids[g, :r, :s] = d.dense_ids()
+        has_mmr[g, :r] = d.has_mmr
+        hp_init[g, :r] = d.hp_init
+        seed_ok[g, :r] = d.seed_ok
+        perm[g, :r] = d.perm
+        sc[:, g] = (d.n_reads, d.n_sites, d.q_break, d.min0, d.max0, covs[g])
+    return GapBatch(ids=ids, has_mmr=has_mmr, hp_init=hp_init,
+                    seed_ok=seed_ok, perm=perm,
+                    n_reads=sc[0], n_sites=sc[1], q_break=sc[2],
+                    min0=sc[3], max0=sc[4], cov=sc[5],
+                    n_cand=np.full(G, n_cand, dtype=np.int32),
+                    D=D, nc_cap=nc_cap, S=S, blk=blk, b0=b0)
+
+
+def batch_args(batch: GapBatch, max_iters: int):
+    """The engine's positional numpy arguments (the JAX package's order)."""
+    G = batch.shape3[0]
+    grid = (batch.ids,) if batch.blk is None else (batch.blk, batch.b0)
+    return grid + (batch.has_mmr, batch.hp_init, batch.seed_ok,
+                   batch.n_reads, batch.n_sites, batch.q_break, batch.min0,
+                   batch.max0, batch.cov, batch.n_cand,
+                   np.full(G, max_iters, dtype=np.int32))
+
+
+_LOOP_KEYS = ("has_mmr", "hp_init", "seed_ok", "n_reads", "n_sites",
+              "q_break", "min0", "max0", "cov", "n_cand", "max_iters")
+
+
+def batch_tensors(batch: GapBatch, max_iters: int,
+                  device) -> Dict[str, torch.Tensor]:
+    """The packed batch as tensors on `device`, keyed by argument name
+    ("ids", or "blk" and "b0", then _LOOP_KEYS). dtypes are kept: ids stay
+    int8 when D <= 127. A CUDA upload goes through pinned host memory with
+    non_blocking copies on the current stream."""
+    device = torch.device(device)
+    grid = ("ids",) if batch.blk is None else ("blk", "b0")
+    out = {}
+    for name, a in zip(grid + _LOOP_KEYS, batch_args(batch, max_iters)):
+        t = torch.from_numpy(np.ascontiguousarray(a))
+        if device.type == "cuda":
+            t = t.pin_memory().to(device, non_blocking=True)
+        else:
+            t = t.to(device)
+        out[name] = t
+    return out
+
+
+def densify_runs(blk: torch.Tensor, b0: torch.Tensor, S: int,
+                 dtype=torch.int32) -> torch.Tensor:
+    """Dense (G, R, S) mer-id grid from the runs layout by index gather
+    (batch._densify_runs builds it with a one-hot einsum): row (g, r) holds
+    blk[g, r, s - 128*b0[g, r]] - 1 inside its run of 128-site blocks and
+    -1 elsewhere; rows with b0 < 0 carry no mers."""
+    G, R, CB = blk.shape
+    if S % 128 or CB % 128:
+        raise ValueError(f"runs layout needs S and CB multiples of 128, "
+                         f"got S={S} CB={CB}")
+    C, B = CB // 128, S // 128
+    out = torch.full((G, R, B, 128), -1, dtype=dtype, device=blk.device)
+    g, r = torch.nonzero(b0 >= 0, as_tuple=True)
+    vals = (blk[g, r].view(-1, C, 128).to(torch.int16) - 1).to(dtype)
+    start = b0[g, r].to(torch.int64)
+    for c in range(C):
+        b = start + c
+        ok = b < B
+        out[g[ok], r[ok], b[ok]] = vals[ok, c]
+    return out.view(G, R, S)
+
+
+def _run_batch(t: Dict[str, torch.Tensor], batch: GapBatch, engine: str):
+    """Densify if needed, then run the engine; returns (hp, stats)."""
+    S, D = batch.S, batch.D
+    if "ids" in t:
+        ids = t["ids"]
+    else:
+        ids = densify_runs(t["blk"], t["b0"], S,
+                           torch.int8 if D <= 127 else torch.int32)
+    rest = [t[k] for k in _LOOP_KEYS]
+    if engine == "cuda":
+        if ids.device.type != "cuda":
+            raise ValueError(f"engine 'cuda' needs CUDA tensors, got "
+                             f"{ids.device}")
+        out = run_batch_fused3(ids, *rest, D=D, nc_cap=batch.nc_cap)
+        DISPATCH_STATS["kernel_launches"] += 1
+        return out
+    if engine == "torch":
+        return loop_plain(ids, *rest, D=D, nc_cap=batch.nc_cap)
+    raise ValueError(f"unknown device engine {engine!r}")
+
+
+# dispatch observability, the keys of pomfret_tpu.parallel.batch's
+# DISPATCH_STATS plus kernel_launches (loop-kernel launches by the "cuda"
+# engine)
+DISPATCH_STATS = {"n_dispatches": 0, "n_devices_last": 1, "lanes_last": 0,
+                  "window_reads": 0,
+                  "gaps_decided": 0, "device_wait_s": 0.0, "real_lanes": 0,
+                  "prefetch_put_wait_s": 0.0, "prefetch_get_wait_s": 0.0,
+                  "prefetch_groups": 0, "prefetch_queue_depth_sum": 0,
+                  "kernel_launches": 0}
+
+
+class PendingBatch:
+    """(G, R) tag matrix of a dispatched batch. np.asarray waits for the
+    event recorded after the device-to-host copy (CUDA), then returns the
+    host array."""
+
+    def __init__(self, host: torch.Tensor, event=None):
+        self._host = host
+        self._event = event
+
+    def __array__(self, dtype=None, copy=None):
+        if self._event is not None:
+            self._event.synchronize()
+        out = self._host.numpy()
+        return out if dtype is None else out.astype(dtype, copy=False)
+
+
+def upload_gap_batch(batch: GapBatch, max_iters: Optional[int] = None, *,
+                     device) -> Dict[str, torch.Tensor]:
+    """batch_tensors with the default iteration cap (2R + 64)."""
+    if max_iters is None:
+        max_iters = 2 * batch.shape3[1] + 64
+    return batch_tensors(batch, max_iters, device)
+
+
+def run_gap_batch_async(batch: GapBatch, max_iters: Optional[int] = None, *,
+                        engine: str, device) -> PendingBatch:
+    """Upload and run a batch without waiting for it. On a GPU the work
+    goes on a stream of its own, so the host packs the next group while
+    this one runs."""
+    device = torch.device(device)
+    DISPATCH_STATS["n_dispatches"] += 1
+    DISPATCH_STATS["n_devices_last"] = 1
+    DISPATCH_STATS["lanes_last"] = batch.shape3[0]
+    if device.type != "cuda":
+        return PendingBatch(_run_batch(
+            upload_gap_batch(batch, max_iters, device=device), batch,
+            engine)[0])
+    stream = torch.cuda.Stream(device)
+    with torch.cuda.stream(stream):
+        hp, _stats = _run_batch(upload_gap_batch(batch, max_iters,
+                                                 device=device),
+                                batch, engine)
+        host = torch.empty(hp.shape, dtype=hp.dtype, pin_memory=True)
+        host.copy_(hp, non_blocking=True)
+        event = torch.cuda.Event()
+        event.record(stream)
+    return PendingBatch(host, event)
+
+
+def run_gap_batch(batch: GapBatch, max_iters: Optional[int] = None, *,
+                  engine: str, device) -> np.ndarray:
+    """Run a packed (gap, direction) batch; returns (G, R) tag vectors."""
+    return np.asarray(run_gap_batch_async(batch, max_iters, engine=engine,
+                                          device=device))
+
+
+class StitchedGroupResult:
+    """Lazy (L, R) tag matrix for a group dispatched as >1 layout sub-batch
+    (pack_group's mixed-layout split). np.asarray blocks on every part and
+    stitches each sub-batch's real lanes back into pack order; rows beyond
+    a part's padded R stay at the unphased state (2)."""
+
+    def __init__(self, parts, n_lanes: int):
+        self._parts = parts  # [(lane_indices, PendingBatch), ...]
+        self._n = n_lanes
+
+    def __array__(self, dtype=None, copy=None):
+        mats = [(idx, np.asarray(dev)) for idx, dev in self._parts]
+        R = max(m.shape[1] for _, m in mats)
+        out = np.full((self._n, R), 2, dtype=np.int32)
+        for idx, m in mats:
+            out[idx, : m.shape[1]] = m[: len(idx)]
+        if dtype is not None:
+            out = out.astype(dtype, copy=False)
+        return out
+
+
+def run_gap_batch_group_async(parts, n_lanes: Optional[int] = None, *,
+                              engine: str, device):
+    """Dispatch a packed group's sub-batches (pack_group's parts list).
+    One part returns its PendingBatch; a mixed group dispatches every
+    sub-batch before blocking on any and returns a StitchedGroupResult."""
+    if len(parts) == 1:
+        return run_gap_batch_async(parts[0][1], engine=engine, device=device)
+    futs = [(idx, run_gap_batch_async(b, engine=engine, device=device))
+            for idx, b in parts]
+    if n_lanes is None:
+        n_lanes = int(max(i.max() for i, _ in futs)) + 1
+    return StitchedGroupResult(futs, n_lanes)
