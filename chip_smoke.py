@@ -6,21 +6,36 @@
 Phases, each printing one line:
  1. card: the GPU's name and power limit (nvidia-smi);
  2. build: nvcc builds the loop kernel from pomfret_tpu_torch/kernels/csrc;
- 3. kernel vs plain: run_batch_fused3 (the CUDA kernel) against loop_plain
+ 3. kernel vs plain: run_batch_fused3 (the loop kernel) against loop_plain
     (plain PyTorch) on the card, on a 10-trial random sweep (testing.
     fuzz_args: the CPU tests' 8 trials, a dense R=1792/D=8/NC=64 window
     and int32 ids), on the crafted near-tie lanes (testing.near_tie_args)
-    and on the bench-shape batch (G=256 lanes, D=4, R=512,
-    S=1536); hp and stats must be equal (exact); prints both times;
+    and on the bench-shape batch (G=256 lanes, D=4, R=512, S=1536); hp and
+    stats must be equal (exact). On the same fixtures the per-iteration
+    engines run whole loops, gen 1 (run_batch_fused, score kernel) and gen
+    2 (run_batch_fused2, score-commit kernel), with every kernel step held
+    against its plain version on the same inputs (testing.checked_step,
+    exact); their hp and stats must equal the loop kernel's. Prints the
+    loop kernel's and the plain loop's time, each step kernel's time
+    against its plain version's, and the whole-loop times of gens 1, 2, 3
+    at the bench shape (CUDA events);
  4. main path: `pomfret-tpu-torch methphase --engine cuda` on the 200-gap
     scale dataset of bench.py (generated once into .bench_data/), then
     `--engine torch --device cuda` on the same card; .mp.vcf/.mp.gtf must
-    be byte-identical and the kernel must have run; prints wall and reads/s;
+    be byte-identical and the loop kernel must have run; prints wall and
+    reads/s;
  4b. profile: one more warm `--engine cuda` run under torch.profiler;
     prints the device busy time and idle share of its wall;
+ 4c. generations: the same `methphase --engine cuda` under
+    POMFRET_FUSED_GEN=1, then =2; outputs byte-identical to gen 3's, the
+    score kernel (gen 1) or the score-commit kernel (gen 2) launched and
+    the loop kernel not; prints wall and reads/s of each;
  5. parity: `--engine cuda` against the host oracle (`--engine host`) on a
     2-chromosome x 6-gap scenario and a trans two-block scenario;
-    .mp.vcf/.mp.gtf/.mp.tsv must be byte-identical.
+    .mp.vcf/.mp.gtf/.mp.tsv must be byte-identical;
+ 6. report: `pomfret-tpu-torch report --engine cuda` under gens 3 and 2
+    against `report --engine host` on the cis two-block scenario;
+    .report.tsv must be byte-identical.
 Then a JSON line of the kernels, and last {"ok": true, "device": {...}}.
 Any failure raises: the exit code is non-zero and the last line is absent.
 Longer output (per-phase stage seconds) goes to chiprun_out/chip_smoke.json.
@@ -80,10 +95,16 @@ def cuda_ms(fn, reps):
 def phase_kernel_vs_plain(dev):
     import numpy as np
     import torch
+    from pomfret_tpu_torch.kernels import engine_fused as f12
     from pomfret_tpu_torch.kernels import engine_fused3 as f3
     from pomfret_tpu_torch.parallel.batch import batch_args
     from pomfret_tpu_torch.testing import (N_FUZZ_CARD, bench_gap_batch,
-                                           fuzz_args, near_tie_args)
+                                           checked_step, fuzz_args,
+                                           near_tie_args)
+
+    score = checked_step(f12.score_candidates_batch, f12.score_plain)
+    step = checked_step(f12.step_fused2, f12.score_commit_plain,
+                        in_place=(3, 4))
 
     def run_both(args, D, nc_cap):
         t = [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in args]
@@ -97,6 +118,14 @@ def phase_kernel_vs_plain(dev):
                                  f"max |hp diff| {err}); stats kernel "
                                  f"{sk[bad[:3]].tolist()} plain "
                                  f"{spl[bad[:3]].tolist()}")
+        # gens 1 and 2, every kernel step checked against its plain version
+        for gen, out in (
+                ("1", f12.run_batch_fused(*t, D=D, nc_cap=nc_cap,
+                                          score=score)),
+                ("2", f12.run_batch_fused2(*t, D=D, nc_cap=nc_cap,
+                                           step=step))):
+            check(torch.equal(out[0], hk) and torch.equal(out[1], sk),
+                  f"gen {gen} loop != loop kernel (hp or stats)")
         return t, hk, sk, err
 
     max_err = 0
@@ -105,6 +134,7 @@ def phase_kernel_vs_plain(dev):
         max_err = max(max_err, err)
     _, _, _, err = run_both(*near_tie_args()[:3])
     max_err = max(max_err, err)
+    score.first = step.first = None  # time the steps at the bench shape
     batch, n_reads = bench_gap_batch(G=256)
     G, R, S = batch.shape3
     args = batch_args(batch, 2 * R + 64)
@@ -112,15 +142,35 @@ def phase_kernel_vs_plain(dev):
     max_err = max(max_err, err)
     tagged = int((hk <= 1).sum())
     check(tagged > 0, "the kernel tagged no read at the bench shape")
-    ms = cuda_ms(lambda: f3.run_batch_fused3(*t, D=batch.D,
-                                             nc_cap=batch.nc_cap), 5)
-    plain_ms = cuda_ms(lambda: f3.loop_plain(*t, D=batch.D,
-                                             nc_cap=batch.nc_cap), 1)
+    check(score.calls > 0 and step.calls > 0, "no step was checked")
+    kw = dict(D=batch.D, nc_cap=batch.nc_cap)
+    ms = cuda_ms(lambda: f3.run_batch_fused3(*t, **kw), 5)
+    plain_ms = cuda_ms(lambda: f3.loop_plain(*t, **kw), 1)
+    gen_ms = {"1": cuda_ms(lambda: f12.run_batch_fused(*t, **kw), 2),
+              "2": cuda_ms(lambda: f12.run_batch_fused2(*t, **kw), 2),
+              "3": ms}
+    # one step at the bench shape: the first iteration's inputs (the
+    # score-commit step updates its copies in place from call to call)
+    sa, skw = score.first
+    ca, ckw = step.first
+    steps = {
+        "score_kernel": (
+            cuda_ms(lambda: f12.score_candidates_batch(*sa, **skw), 50),
+            cuda_ms(lambda: f12.score_plain(*sa, **skw), 50)),
+        "score_commit_kernel": (
+            cuda_ms(lambda: f12.step_fused2(*ca, **ckw), 50),
+            cuda_ms(lambda: f12.score_commit_plain(*ca, **ckw), 50))}
     iters = int(sk[:, 0].max())
     return dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
                 fuzz_trials=N_FUZZ_CARD, G=G, R=R, S=S, D=batch.D,
                 nc_cap=batch.nc_cap, iters=iters, tagged=tagged,
-                reads=G * n_reads)
+                reads=G * n_reads, gen_loop_ms=gen_ms,
+                step_ms={k: v[0] for k, v in steps.items()},
+                step_plain_ms={k: v[1] for k, v in steps.items()},
+                step_max_abs_err={"score_kernel": score.max_abs_err,
+                                  "score_commit_kernel": step.max_abs_err},
+                steps_checked={"score_kernel": score.calls,
+                               "score_commit_kernel": step.calls})
 
 
 def phase_profile(base):
@@ -192,6 +242,31 @@ def methphase(args):
     return wall
 
 
+def methreport(args):
+    from pomfret_tpu_torch.cli import main
+    rc = main(["report", *args])
+    check(rc == 0, f"report {' '.join(args)} exited {rc}")
+
+
+def zero_counts():
+    """Every kernel's launch counts to 0: the wrappers' and DISPATCH_STATS'."""
+    from pomfret_tpu_torch.parallel.batch import DISPATCH_STATS, KERNELS
+    for name, fn in KERNELS.items():
+        fn.launches = 0
+        DISPATCH_STATS["kernel_launches"][name] = 0
+
+
+def read_counts():
+    """Launches of each kernel since zero_counts(), by name; the dispatch
+    layer must have counted the same."""
+    from pomfret_tpu_torch.parallel.batch import DISPATCH_STATS, KERNELS
+    n = {name: fn.launches for name, fn in KERNELS.items()}
+    check(n == DISPATCH_STATS["kernel_launches"],
+          f"launch counts: wrappers {n}, dispatch "
+          f"{DISPATCH_STATS['kernel_launches']}")
+    return n
+
+
 def same_outputs(p1, p2, exts):
     for ext in exts:
         with open(p1 + ext, "rb") as f1, open(p2 + ext, "rb") as f2:
@@ -215,7 +290,6 @@ def main():
     sys.path.insert(0, ROOT)
     import pomfret_tpu_torch  # noqa: F401  (absent beside a lone script)
     from pomfret_tpu_torch.kernels import _build
-    from pomfret_tpu_torch.kernels import engine_fused3 as f3
     from pomfret_tpu_torch.parallel.batch import DISPATCH_STATS
     from pomfret_tpu.utils.stats import reset_stages, stage_report
 
@@ -240,6 +314,17 @@ def main():
         f"near-tie lanes and the bench shape G={kv['G']} R={kv['R']} S={kv['S']} D={kv['D']} "
         f"nc={kv['nc_cap']} ({kv['iters']} iterations max): kernel "
         f"{kv['ms']:.3f} ms, plain {kv['plain_ms']:.3f} ms on {card}")
+    sm, spm, n = kv["step_ms"], kv["step_plain_ms"], kv["steps_checked"]
+    gm = kv["gen_loop_ms"]
+    say("kernel", f"gens 1 and 2 == loop kernel (hp, stats) on the same "
+        f"fixtures; every step == its plain version ({n['score_kernel']} "
+        f"score and {n['score_commit_kernel']} score-commit steps); one "
+        f"bench-shape step: score_kernel {sm['score_kernel']:.4f} ms, "
+        f"score_plain {spm['score_kernel']:.4f} ms, score_commit_kernel "
+        f"{sm['score_commit_kernel']:.4f} ms, score_commit_plain "
+        f"{spm['score_commit_kernel']:.4f} ms; whole loop at the bench shape: "
+        f"gen 1 {gm['1']:.2f} ms, gen 2 {gm['2']:.2f} ms, gen 3 "
+        f"{gm['3']:.3f} ms; {card}")
 
     work = tempfile.mkdtemp(prefix="chip_smoke_")
     t0 = time.perf_counter()
@@ -250,17 +335,16 @@ def main():
     base = ["--vcf", vcf, bam]
     methphase(["-o", p_c2, "--engine", "cuda", *base])  # cold: first use
     # the main path, counted from zero: only its launches count
-    f3.run_batch_fused3.launches = 0
-    DISPATCH_STATS["kernel_launches"] = 0
+    zero_counts()
     reads0 = DISPATCH_STATS["window_reads"]
     reset_stages()
     wall_c = methphase(["-o", p_c, "--engine", "cuda", *base])
-    launches = f3.run_batch_fused3.launches
+    counts = read_counts()
     reads = DISPATCH_STATS["window_reads"] - reads0
     report["e2e_cuda"] = dict(wall_s=wall_c, window_reads=reads,
-                              kernel_launches=launches,
+                              kernel_launches=counts,
                               stages=stage_report(3))
-    check(launches > 0 and DISPATCH_STATS["kernel_launches"] == launches,
+    check(counts["loop_kernel"] > 0,
           "the main path did not launch the loop kernel")
     check(reads > 0, "the main path loaded no window reads")
     dec = decisions(p_c)
@@ -279,7 +363,8 @@ def main():
         f"reads: {wall_c:.2f} s = {reads / wall_c:.0f} reads/s (repeats "
         f"{', '.join(f'{w:.2f}' for w in report['e2e_cuda']['repeat_walls_s'])}"
         f" s), "
-        f"{launches} kernel launches, {dec.count(0)}/{len(dec)} gaps joined; "
+        f"{counts['loop_kernel']} loop-kernel launches, {dec.count(0)}/"
+        f"{len(dec)} gaps joined; "
         f"--engine torch "
         f"{wall_t:.2f} s; outputs identical; {card}")
 
@@ -291,6 +376,35 @@ def main():
         f"{pr['device_busy_s'] * 1e3:.1f} ms in {pr['device_events']} "
         f"events (idle {100 * pr['device_idle_share']:.1f}%), "
         f"loop_kernel {pr['loop_kernel_s'] * 1e3:.2f} ms; {card}")
+
+    # 4c: the per-iteration engines on the same path, each counted from zero
+    gens = {}
+    for gen, kernel in (("1", "score_kernel"), ("2", "score_commit_kernel")):
+        p_g = os.path.join(work, f"gen{gen}")
+        os.environ["POMFRET_FUSED_GEN"] = gen
+        try:
+            zero_counts()
+            reads0 = DISPATCH_STATS["window_reads"]
+            reset_stages()
+            wall = methphase(["-o", p_g, "--engine", "cuda", *base])
+        finally:
+            del os.environ["POMFRET_FUSED_GEN"]
+        n = read_counts()
+        greads = DISPATCH_STATS["window_reads"] - reads0
+        gens[gen] = dict(wall_s=wall, window_reads=greads,
+                         kernel_launches=n, stages=stage_report(3))
+        check(n[kernel] > 0, f"gen {gen} did not launch {kernel}")
+        check(n["loop_kernel"] == 0, f"gen {gen} launched the loop kernel")
+        same_outputs(p_c, p_g, (".mp.vcf", ".mp.gtf"))
+    report["e2e_gens"] = gens
+    say("gens", "methphase --engine cuda, outputs identical to gen 3's: "
+        + "; ".join(f"POMFRET_FUSED_GEN={g} {v['wall_s']:.2f} s = "
+                    f"{v['window_reads'] / v['wall_s']:.0f} reads/s, "
+                    f"{v['kernel_launches'][k]} {k} launches"
+                    for (g, v), k in zip(gens.items(),
+                                         ("score_kernel",
+                                          "score_commit_kernel")))
+        + f" (gen 3 {wall_c:.2f} s); {card}")
 
     from pomfret_tpu.testing import (make_multichrom_multigap_scenario,
                                      make_two_block_scenario)
@@ -314,6 +428,29 @@ def main():
     say("parity", "cuda == host oracle (.mp.vcf/.mp.gtf/.mp.tsv) on 2 chroms "
         "x 6 gaps and the trans two-block scenario")
 
+    d3 = os.path.join(work, "report")
+    os.makedirs(d3)
+    bam3, vcf3, _ = make_two_block_scenario(d3)
+    rargs = ["-c", "50", "--chunk-size", "40000", "--chunk-stride", "30000",
+             "--vcf", vcf3, bam3]
+    methreport(["-o", os.path.join(d3, "host"), "--engine", "host",
+                *rargs])
+    for gen in ("3", "2"):
+        os.environ["POMFRET_FUSED_GEN"] = gen
+        try:
+            before = read_counts()
+            methreport(["-o", os.path.join(d3, f"cuda{gen}"), "--engine",
+                        "cuda", *rargs])
+        finally:
+            del os.environ["POMFRET_FUSED_GEN"]
+        kernel = "loop_kernel" if gen == "3" else "score_commit_kernel"
+        check(read_counts()[kernel] > before[kernel],
+              f"report gen {gen} did not launch {kernel}")
+        same_outputs(os.path.join(d3, f"cuda{gen}"), os.path.join(d3, "host"),
+                     (".report.tsv",))
+    say("report", "report --engine cuda (gens 3 and 2) == --engine host "
+        "(.report.tsv) on the cis two-block scenario")
+
     loaded = sorted(m for m in sys.modules
                     if m == "jax" or m.startswith(("jax.",
                                                    "pomfret_tpu.kernels",
@@ -324,12 +461,20 @@ def main():
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
         json.dump(report, f, indent=1, default=str)
-    print(json.dumps({"kernels": [{
-        "name": "loop_kernel", "route": "cuda",
-        "source": "pomfret_tpu_torch/kernels/csrc/loop_kernel.cu",
-        "replaces": "pomfret_tpu/kernels/engine_fused3.py:126",
-        "launches": launches, "max_abs_err": kv["max_abs_err"],
-        "ms": kv["ms"], "plain_ms": kv["plain_ms"]}]}))
+    csrc = "pomfret_tpu_torch/kernels/csrc/"
+    print(json.dumps({"kernels": [
+        {"name": "loop_kernel", "route": "cuda",
+         "source": csrc + "loop_kernel.cu",
+         "replaces": "pomfret_tpu/kernels/engine_fused3.py:126",
+         "launches": counts["loop_kernel"], "max_abs_err": kv["max_abs_err"],
+         "ms": kv["ms"], "plain_ms": kv["plain_ms"]}] + [
+        {"name": name, "route": "cuda", "source": csrc + f"{name}.cu",
+         "replaces": f"pomfret_tpu/kernels/engine_fused.py:{line}",
+         "launches": gens[gen]["kernel_launches"][name],
+         "max_abs_err": kv["step_max_abs_err"][name],
+         "ms": kv["step_ms"][name], "plain_ms": kv["step_plain_ms"][name]}
+        for name, line, gen in (("score_kernel", 80, "1"),
+                                ("score_commit_kernel", 273, "2"))]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

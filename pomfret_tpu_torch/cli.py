@@ -1,7 +1,7 @@
-"""CLI front-end of the port: pomfret-tpu-torch methphase.
+"""CLI front-end of the port: pomfret-tpu-torch methphase | report.
 
-The methphase flags and defaults are pomfret_tpu.cli's (reused from it),
-with --engine auto|host|torch|cuda and --device. The other subcommands of
+The flags and defaults are pomfret_tpu.cli's (reused from it), with
+--engine auto|host|torch|cuda and --device. The other subcommands of
 pomfret_tpu.cli are not yet ported.
 """
 from __future__ import annotations
@@ -13,27 +13,30 @@ import sys
 from pomfret_tpu.cli import (_add_methphase_args, _opt_from_args, _sancheck,
                              _sancheck_files_exist)
 from pomfret_tpu.utils.log import (Get_T, Get_U, data_has_implicit,
-                                   set_verbose)
+                                   log_err, set_verbose)
 
 from . import ENGINES, VERSION
-from .pipeline import main_blockjoin
+from .pipeline import main_blockjoin, main_methreport
 
-NOT_PORTED = ("report", "methstat", "warmup", "varhaptag", "bam2cram")
+NOT_PORTED = ("methstat", "warmup", "varhaptag", "bam2cram")
 
 
 def _parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(prog="pomfret-tpu-torch")
     sub = parser.add_subparsers(dest="cmd")
-    p = sub.add_parser("methphase", help="join phase blocks using 5mC",
-                       conflict_handler="resolve")
-    _add_methphase_args(p)
-    p.add_argument("--engine", choices=ENGINES, default="auto",
-                   help="host oracle, the plain torch loop, or the CUDA "
-                        "kernel (auto: cuda when a GPU is present, else "
-                        "host)")
-    p.add_argument("--device", default=None,
-                   help="device of the torch engine (default cpu); the "
-                        "cuda engine takes a cuda device (default cuda)")
+    for cmd, what in (("methphase", "join phase blocks using 5mC"),
+                      ("report", "self-evaluate join quality on phased "
+                                 "regions")):
+        p = sub.add_parser(cmd, help=what, conflict_handler="resolve")
+        _add_methphase_args(p)
+        p.add_argument("--engine", choices=ENGINES, default="auto",
+                       help="host oracle, the plain torch loop, or the CUDA "
+                            "kernels (auto: cuda when a GPU is present, "
+                            "else host); POMFRET_FUSED_GEN=1|2|3 picks the "
+                            "engine generation (default 3)")
+        p.add_argument("--device", default=None,
+                       help="device of the torch engine (default cpu); the "
+                            "cuda engine takes a cuda device (default cuda)")
     return parser
 
 
@@ -49,7 +52,7 @@ def main(argv=None) -> int:
     T = Get_T()
     parser = _parser()
     a = parser.parse_args(argv)
-    if a.cmd != "methphase":
+    if a.cmd not in ("methphase", "report"):
         parser.print_help(sys.stderr)
         return 1
     if a.ref_fasta:
@@ -59,6 +62,12 @@ def main(argv=None) -> int:
     opt = _opt_from_args(a)
     if not _sancheck(opt) or not _sancheck_files_exist(opt):
         ret = 1
+    elif a.cmd == "report":
+        if not opt.fn_vcf:
+            log_err("main", "missing input: phased vcf file.")
+            ret = 1
+        else:
+            ret = main_methreport(opt, a.device)
     else:
         ret = main_blockjoin(opt, a.device)
     sys.stderr.write("\n[M::main] CMD: pomfret-tpu-torch " + " ".join(argv)

@@ -42,53 +42,11 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "common.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr unsigned kFull = 0xffffffffu;
-
-__device__ __forceinline__ int warp_min(int v) {
-  for (int o = 16; o > 0; o >>= 1) v = min(v, __shfl_xor_sync(kFull, v, o));
-  return v;
-}
-
-__device__ __forceinline__ int warp_max(int v) {
-  for (int o = 16; o > 0; o >>= 1) v = max(v, __shfl_xor_sync(kFull, v, o));
-  return v;
-}
-
-__device__ __forceinline__ int warp_sum(int v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
-  return v;
-}
-
-__device__ __forceinline__ double warp_sum(double v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
-  return v;
-}
-
-// Block-wide min/max, returned to every thread. The leading barrier keeps a
-// previous call's readers of `red` ahead of this call's writers.
-__device__ int block_min(int v, int* red) {
-  v = warp_min(v);
-  __syncthreads();
-  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
-  __syncthreads();
-  int r = red[0];
-  for (int w = 1; w < kWarps; ++w) r = min(r, red[w]);
-  return r;
-}
-
-__device__ int block_max(int v, int* red) {
-  v = warp_max(v);
-  __syncthreads();
-  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
-  __syncthreads();
-  int r = red[0];
-  for (int w = 1; w < kWarps; ++w) r = max(r, red[w]);
-  return r;
-}
+using namespace pomfret;
 
 // ids (G,R,S) int8|int32, -1 = absent; hm (G,R) bool; scal (G,8) int32 =
 // [min0, max0, cov, n_sites, n_reads, q_break, n_cand, max_iters];
@@ -148,11 +106,8 @@ loop_kernel(const IdT* __restrict__ ids, const uint8_t* __restrict__ hm,
       if ((!ok && s >= max0) || s >= n_sites) fb = min(fb, s);
       if (!ok && s <= min0 && min0 >= 0) lnb = max(lnb, s);
     }
-    fb = block_min(fb, red);
-    lnb = block_max(lnb, red);
-    const int max_i = fb > max0 ? fb - 1 : max0;
-    const int min_i =
-        min0 < 0 ? min0 : (lnb == min0 ? min0 : (lnb >= 0 ? lnb + 1 : 0));
+    int min_i, max_i;
+    site_range(fb, lnb, min0, max0, red, &min_i, &max_i);
 
     // --- candidates: first n_cand untagged rows in [q_last, n_reads),
     //     found by a block scan in chunks of kThreads rows ---
@@ -185,36 +140,13 @@ loop_kernel(const IdT* __restrict__ ids, const uint8_t* __restrict__ hm,
     // --- scoring: one warp per candidate, lanes stride over the range ---
     const int lo = max(min_i, 0), hi = min(max_i, S);
     for (int k = warp; k < n_valid; k += kWarps) {
-      const IdT* row = lane_ids + static_cast<size_t>(cand[k]) * S;
-      double a0 = 0.0, a1 = 0.0;
-      int l0 = 0, l1 = 0;
-      for (int s = lo + lane; s < hi; s += 32) {
-        const int id = static_cast<int>(row[s]);
-        if (id < 0 || id >= D) continue;
-        const float c0 = cnt[static_cast<size_t>(2 * id) * S + s];
-        const float c1 = cnt[static_cast<size_t>(2 * id + 1) * S + s];
-        if (!(c0 + c1 > 0.f)) continue;  // not found in the table
-        const float t0 = sum0[s], t1 = sum1[s];
-        if (t0 > 0.f) {
-          const float r = __fdiv_rn(c0, fmaxf(t0, 1.f));
-          a0 += static_cast<double>(r);
-          l0 += 1 + (r > 0.f);  // l_found + l_nonzero (score_l quirk)
-        }
-        if (t1 > 0.f) {
-          const float r = __fdiv_rn(c1, fmaxf(t1, 1.f));
-          a1 += static_cast<double>(r);
-          l1 += 1 + (r > 0.f);
-        }
-      }
-      a0 = warp_sum(a0);
-      a1 = warp_sum(a1);
-      l0 = warp_sum(l0);
-      l1 = warp_sum(l1);
+      const Score r = warp_score(lane_ids + static_cast<size_t>(cand[k]) * S,
+                                 cnt, sum0, sum1, lo, hi, S, D);
       if (lane == 0) {
-        sc0[k] = __double2float_rn(a0);
-        sc1[k] = __double2float_rn(a1);
-        lt0[k] = l0;
-        lt1[k] = l1;
+        sc0[k] = __double2float_rn(r.a0);
+        sc1[k] = __double2float_rn(r.a1);
+        lt0[k] = r.f0 + r.nz0;  // l_found + l_nonzero (score_l quirk)
+        lt1[k] = r.f1 + r.nz1;
       }
     }
     __syncthreads();
@@ -289,11 +221,11 @@ extern "C" int pomfret_loop_launch(int id_bytes, const void* ids,
   int32_t* ho = static_cast<int32_t*>(hp_out);
   int32_t* so = static_cast<int32_t*>(stats);
   if (id_bytes == 1) {
-    loop_kernel<int8_t><<<G, kThreads, shm, st>>>(
+    loop_kernel<int8_t><<<G, pomfret::kThreads, shm, st>>>(
         static_cast<const int8_t*>(ids), h, sc, hi, c, sm, ho, so, R, S, D,
         nc_cap);
   } else if (id_bytes == 4) {
-    loop_kernel<int32_t><<<G, kThreads, shm, st>>>(
+    loop_kernel<int32_t><<<G, pomfret::kThreads, shm, st>>>(
         static_cast<const int32_t*>(ids), h, sc, hi, c, sm, ho, so, R, S, D,
         nc_cap);
   } else {

@@ -27,11 +27,10 @@ with this version bit for bit.
 """
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
-from .engine_fused import _range_from_seed_b, _seed_count_table_b
+from .engine_fused import (_candidates_b, _check, _launch, _range_from_seed_b,
+                           _seed_count_table_b, _stats)
 
 MAX_NC_CAP = 1024  # the kernel keeps 5 words per candidate slot in shared memory
 
@@ -51,7 +50,6 @@ def loop_plain(ids, has_mmr, hp_init, seed_ok, n_reads, n_sites, q_break,
     failed = torch.zeros_like(q_last)
     it = torch.zeros_like(q_last)
     ncom = torch.zeros_like(q_last)
-    q = torch.arange(R, device=dev, dtype=i64)[None, :]
     slots = torch.arange(nc_cap, device=dev, dtype=i64)[None, :]
     site = torch.arange(S, device=dev, dtype=i32)[None, :]
     n_slots = torch.clamp(n_cand.to(i64), max=nc_cap)
@@ -69,19 +67,10 @@ def loop_plain(ids, has_mmr, hp_init, seed_ok, n_reads, n_sites, q_break,
         min_i, max_i = _range_from_seed_b(s0 + s1, cov[L], min0[L], max0[L],
                                           n_sites[L])
 
-        # --- candidates: first n_cand untagged rows >= q_last
-        #     (blockjoin.c:4037-4051) ---
+        # --- candidates: first n_cand untagged rows >= q_last ---
         h = hp[L]
-        elig = ((h != 0) & (h != 1) & (q >= q_last[L, None].to(i64))
-                & (q < n_reads[L, None].to(i64)))
-        rank = torch.cumsum(elig.to(i64), dim=1)
-        sel = elig & (rank <= n_slots[L, None])
-        slot = torch.where(sel, rank - 1, nc_cap)  # unselected -> spill slot
-        cand = torch.full((n, nc_cap + 1), -1, dtype=i64, device=dev)
-        cand.scatter_(1, slot, q.expand(n, R))
-        cand = cand[:, :nc_cap]
-        valid = cand >= 0
-        crow = cand.clamp(min=0)
+        crow, valid = _candidates_b(h, q_last[L], n_reads[L], n_slots[L],
+                                    nc_cap)
 
         # --- scoring (blockjoin.c:3487-3656) ---
         cids = ids[L[:, None], crow].to(i64)                  # (n, NC, S)
@@ -113,7 +102,7 @@ def loop_plain(ids, has_mmr, hp_init, seed_ok, n_reads, n_sites, q_break,
                              -1).amax(dim=1)
         do_commit = best >= 0
         bk = best_k.clamp(min=0)
-        rid = cand.gather(1, bk[:, None])[:, 0]
+        rid = crow.gather(1, bk[:, None])[:, 0]
         t = tag.gather(1, bk[:, None])[:, 0]
         rids = cids[ar, bk]                                    # (n, S)
         upd = (rids >= 0) & (rids < D) & do_commit[:, None]
@@ -128,19 +117,7 @@ def loop_plain(ids, has_mmr, hp_init, seed_ok, n_reads, n_sites, q_break,
         q_last[L] = torch.where(do_commit, q_last[L], q_last[L] + n_cand[L])
         ncom[L] += do_commit.to(i32)
         it[L] += 1
-    zeros = torch.zeros_like(it)
-    stats = torch.stack([it, q_last, failed, ncom, zeros, zeros, zeros,
-                         zeros], dim=1).to(i32)
-    return hp, stats
-
-
-def _check(name, t, dtypes, shape):
-    if t.dtype not in dtypes:
-        raise TypeError(f"{name}: dtype {t.dtype}, expected one of {dtypes}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {shape}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
+    return hp, _stats(it, q_last, failed, ncom)
 
 
 def run_batch_fused3(ids, has_mmr, hp_init, seed_ok, n_reads, n_sites,
@@ -162,33 +139,22 @@ def run_batch_fused3(ids, has_mmr, hp_init, seed_ok, n_reads, n_sites,
     G, R, S = ids.shape
     if not 0 < nc_cap <= MAX_NC_CAP:
         raise ValueError(f"nc_cap={nc_cap} outside (0, {MAX_NC_CAP}]")
-    _check("ids", ids, (torch.int8, torch.int32), (G, R, S))
+    _check("ids", ids, (torch.int8, torch.int32), (G, R, S), dev)
     for name, t in (("has_mmr", has_mmr), ("seed_ok", seed_ok)):
-        _check(name, t, (torch.bool,), (G, R))
-    _check("hp_init", hp_init, (torch.int32,), (G, R))
+        _check(name, t, (torch.bool,), (G, R), dev)
+    _check("hp_init", hp_init, (torch.int32,), (G, R), dev)
     scal = torch.stack([min0, max0, cov, n_sites, n_reads, q_break, n_cand,
                         max_iters], dim=1)
-    _check("scal", scal, (torch.int32,), (G, 8))
-    for t in (has_mmr, hp_init, seed_ok, scal):
-        if t.device != dev:
-            raise ValueError(f"all inputs must be on {dev}, got {t.device}")
+    _check("scal", scal, (torch.int32,), (G, 8), dev)
 
-    from ._build import get_lib
-    lib = get_lib()
     cnt = _seed_count_table_b(ids, hp_init, seed_ok, has_mmr, D).contiguous()
     sums = torch.empty((G, 2, S), dtype=torch.float32, device=dev)
     hp = torch.empty((G, R), dtype=torch.int32, device=dev)
     stats = torch.empty((G, 8), dtype=torch.int32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    with torch.cuda.device(dev):
-        rc = lib.pomfret_loop_launch(
-            ids.element_size(), ids.data_ptr(), has_mmr.data_ptr(),
-            scal.data_ptr(), hp_init.data_ptr(), cnt.data_ptr(),
-            sums.data_ptr(), hp.data_ptr(), stats.data_ptr(),
-            G, R, S, D, nc_cap, ctypes.c_void_p(stream))
-    if rc != 0:
-        raise RuntimeError("loop_kernel launch failed: "
-                           f"{lib.pomfret_error_string(rc).decode()} ({rc})")
+    _launch(dev, "pomfret_loop_launch", ids.element_size(), ids.data_ptr(),
+            has_mmr.data_ptr(), scal.data_ptr(), hp_init.data_ptr(),
+            cnt.data_ptr(), sums.data_ptr(), hp.data_ptr(), stats.data_ptr(),
+            G, R, S, D, nc_cap)
     run_batch_fused3.launches += 1
     return hp, stats
 

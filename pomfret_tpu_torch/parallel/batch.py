@@ -7,18 +7,28 @@ comes back as a (G, R) tag matrix. Each in-flight group has its own CUDA
 stream; its result is read once the event recorded after its download has
 completed.
 
-Engines: "cuda" is the hand-written loop kernel (engine_fused3.
-run_batch_fused3) and raises on a CPU tensor; "torch" is the plain loop
-(engine_fused3.loop_plain) on whatever device the batch was given.
+Engines: "cuda" runs the hand-written kernels and raises on a CPU tensor;
+"torch" runs their plain versions on whatever device the batch was given.
+POMFRET_FUSED_GEN (_fused_gen) picks the engine generation, as in the JAX
+package: 3 (the default) is the whole loop in one launch
+(engine_fused3.run_batch_fused3, or loop_plain), 2 one score-and-commit
+launch per iteration (engine_fused.run_batch_fused2), 1 one scoring launch
+per iteration with the commit in plain torch (engine_fused.run_batch_fused).
 """
 from __future__ import annotations
 
+import functools
+import os
 from dataclasses import dataclass
 from typing import Dict, Optional, Sequence
 
 import numpy as np
 import torch
 
+from ..kernels.engine_fused import (run_batch_fused, run_batch_fused2,
+                                    score_candidates_batch,
+                                    score_commit_plain, score_plain,
+                                    step_fused2)
 from ..kernels.engine_fused3 import loop_plain, run_batch_fused3
 from ..kernels.engine_torch import GapDeviceData, _round_up
 
@@ -168,36 +178,73 @@ def densify_runs(blk: torch.Tensor, b0: torch.Tensor, S: int,
     return out.view(G, R, S)
 
 
+def _fused_gen() -> str:
+    """Engine generation selector (pomfret_tpu.parallel.batch._fused_gen):
+    POMFRET_FUSED_GEN in 1|2|3; the legacy POMFRET_FUSED_V2=0 selects 1;
+    any other value warns and takes the default, 3."""
+    gen = os.environ.get("POMFRET_FUSED_GEN")
+    if gen:
+        if gen in ("1", "2", "3"):
+            return gen
+        from pomfret_tpu.utils.log import log_warn
+        log_warn("fused_gen",
+                 f"POMFRET_FUSED_GEN={gen!r} is not one of 1|2|3; "
+                 "using the default engine (3)")
+        return "3"
+    if os.environ.get("POMFRET_FUSED_V2") == "0":
+        return "1"
+    return "3"
+
+
+def _loop_for(engine: str, gen: str):
+    """The loop that runs a batch: the kernel wrappers' for "cuda", their
+    plain versions' for "torch"."""
+    if engine == "cuda":
+        return {"1": run_batch_fused, "2": run_batch_fused2,
+                "3": run_batch_fused3}[gen]
+    if engine == "torch":
+        return {"1": functools.partial(run_batch_fused, score=score_plain),
+                "2": functools.partial(run_batch_fused2,
+                                       step=score_commit_plain),
+                "3": loop_plain}[gen]
+    raise ValueError(f"unknown device engine {engine!r}")
+
+
+# the kernel wrappers by kernel name; each counts its launches
+KERNELS = {"loop_kernel": run_batch_fused3,
+           "score_kernel": score_candidates_batch,
+           "score_commit_kernel": step_fused2}
+
+
 def _run_batch(t: Dict[str, torch.Tensor], batch: GapBatch, engine: str):
-    """Densify if needed, then run the engine; returns (hp, stats)."""
+    """Densify if needed, then run the selected engine generation; returns
+    (hp, stats). Kernel launches add to DISPATCH_STATS["kernel_launches"]
+    by kernel name."""
     S, D = batch.S, batch.D
+    loop = _loop_for(engine, _fused_gen())
     if "ids" in t:
         ids = t["ids"]
     else:
         ids = densify_runs(t["blk"], t["b0"], S,
                            torch.int8 if D <= 127 else torch.int32)
-    rest = [t[k] for k in _LOOP_KEYS]
-    if engine == "cuda":
-        if ids.device.type != "cuda":
-            raise ValueError(f"engine 'cuda' needs CUDA tensors, got "
-                             f"{ids.device}")
-        out = run_batch_fused3(ids, *rest, D=D, nc_cap=batch.nc_cap)
-        DISPATCH_STATS["kernel_launches"] += 1
-        return out
-    if engine == "torch":
-        return loop_plain(ids, *rest, D=D, nc_cap=batch.nc_cap)
-    raise ValueError(f"unknown device engine {engine!r}")
+    if engine == "cuda" and ids.device.type != "cuda":
+        raise ValueError(f"engine 'cuda' needs CUDA tensors, got "
+                         f"{ids.device}")
+    before = {name: fn.launches for name, fn in KERNELS.items()}
+    out = loop(ids, *[t[k] for k in _LOOP_KEYS], D=D, nc_cap=batch.nc_cap)
+    for name, fn in KERNELS.items():
+        DISPATCH_STATS["kernel_launches"][name] += fn.launches - before[name]
+    return out
 
 
 # dispatch observability, the keys of pomfret_tpu.parallel.batch's
-# DISPATCH_STATS plus kernel_launches (loop-kernel launches by the "cuda"
-# engine)
+# DISPATCH_STATS plus kernel_launches (launches by kernel name)
 DISPATCH_STATS = {"n_dispatches": 0, "n_devices_last": 1, "lanes_last": 0,
                   "window_reads": 0,
                   "gaps_decided": 0, "device_wait_s": 0.0, "real_lanes": 0,
                   "prefetch_put_wait_s": 0.0, "prefetch_get_wait_s": 0.0,
                   "prefetch_groups": 0, "prefetch_queue_depth_sum": 0,
-                  "kernel_launches": 0}
+                  "kernel_launches": {name: 0 for name in KERNELS}}
 
 
 class PendingBatch:

@@ -1,8 +1,9 @@
-"""methphase pipeline on the port's device engine.
+"""methphase and report pipelines on the port's device engine.
 
 Counterpart of pomfret_tpu/pipeline.py: blockjoin_parallel (:358-498),
-_blockjoin_all_chroms_jax (here _blockjoin_all_chroms_torch, :302-355) and
-main_blockjoin (:584-639), with the jax call sites replaced. Everything
+_blockjoin_all_chroms_jax (here _blockjoin_all_chroms_torch, :302-355),
+main_blockjoin (:584-639) and main_methreport (:722-870), with the jax
+call sites replaced. Everything
 else — CliOpt, the host engine's per-chromosome path, coverage estimation,
 the writers — is imported from pomfret_tpu.pipeline, which imports no jax
 at module level.
@@ -13,7 +14,9 @@ import concurrent.futures as _fut
 import dataclasses
 import os
 import sys
-from typing import Dict, List
+from typing import Dict, List, Tuple
+
+import numpy as np
 
 from pomfret_tpu.core.intervals import (Storage, generate_new_phase_blocks,
                                         lift_decisions,
@@ -31,11 +34,18 @@ from pomfret_tpu.io.writers import (output_gtf, output_modify_bam,
                                     output_modify_vcf, output_tsv)
 from pomfret_tpu.pipeline import (CliOpt, _blockjoin_one_chrom,
                                   _derive_chrom_params,
-                                  estimate_read_coverage_cached)
+                                  estimate_read_coverage_cached,
+                                  haplotag_region_given_bam)
 from pomfret_tpu.utils.log import Get_T, log_err, log_info, log_warn
 from pomfret_tpu.utils.stats import stage
 
 from . import resolve_device
+
+
+def _single_process():
+    if int(os.environ.get("POMFRET_NUM_PROCS", "1")) > 1:
+        raise NotImplementedError("multi-process runs (POMFRET_NUM_PROCS > 1)"
+                                  " are not yet ported to pomfret_tpu_torch")
 
 
 def _blockjoin_all_chroms_torch(st: Storage, fn_bam: str, config: MmrConfig,
@@ -94,9 +104,7 @@ def blockjoin_parallel(opt: CliOpt, config: MmrConfig,
     """Load gaps (+ optional varhaptag), then join per chromosome
     (blockjoin.c:4428-4603). opt.engine is auto|host|torch|cuda; `device`
     is where the torch engine runs (see resolve_device)."""
-    if int(os.environ.get("POMFRET_NUM_PROCS", "1")) > 1:
-        raise NotImplementedError("multi-process runs (POMFRET_NUM_PROCS > 1)"
-                                  " are not yet ported to pomfret_tpu_torch")
+    _single_process()
     engine, dev = resolve_device(opt.engine, device)
     T = Get_T()
     st = Storage()
@@ -240,4 +248,134 @@ def main_blockjoin(opt: CliOpt, device=None) -> int:
             output_modify_bam(opt.fn_bam, st,
                               opt.output_prefix + ".mp.bam", opt.threads_bam)
         log_info("main_blockjoin", "bam + index written.")
+    return 0
+
+
+def main_methreport(opt: CliOpt, device=None) -> int:
+    """report (main_methreport, blockjoin.c:4908-5097): probe windows
+    inside the phased blocks, each scored like a gap. The batched device
+    engine takes every window of every chromosome through one
+    run_jobs_batched; --engine host scores them one by one. One process;
+    the JAX package's round-robin over hosts is not ported."""
+    _single_process()
+    engine, dev = resolve_device(opt.engine, device)
+    T = Get_T()
+    st = Storage()
+    bam = open_alignment(opt.fn_bam, threads=opt.threads)
+    if opt.bam_needs_haplotagging:
+        def cb(chrom, variants):
+            pre_haplotagging_read_in_one_ref(bam, chrom, variants,
+                                             st.qname2haptag_raw)
+        load_intervals_from_file(opt.fn_vcf, IS_VCF, st,
+                                 load_vcf_variants_too=True, haptag_callback=cb)
+    else:
+        load_intervals_from_file(opt.fn_vcf, IS_VCF, st)
+
+    # synthesize probe windows inside phased regions (blockjoin.c:4962-4995)
+    for i_ref, rg in enumerate(st.ranges):
+        starts: List[int] = []
+        ends: List[int] = []
+        prev = rg.abs_start
+        for s, e in zip(rg.starts, rg.ends):
+            if s - prev > opt.chunk_size:
+                i = prev
+                while i + opt.chunk_stride < s:
+                    starts.append(i)
+                    ends.append(i + opt.chunk_size)
+                    i += opt.chunk_stride
+            prev = e
+        rg.starts = starts
+        rg.ends = ends
+        rg.decisions = [-1] * len(starts)
+        log_info("main_methreport", f"{st.ref_names[i_ref]} has {len(starts)} intervals")
+
+    name2cov_rep: Dict[str, int] = {}
+    if opt.cov <= 0:
+        with stage("coverage_scan"):
+            name2cov_rep = estimate_read_coverage_cached(opt.fn_bam,
+                                                         opt.threads)
+
+    config = MmrConfig(k=opt.k, k_span=opt.k_span, lo=opt.lo, hi=opt.hi,
+                       readlen_threshold=opt.readlen_threshold,
+                       min_mapq=opt.mapq)
+    win_global: Dict[Tuple[int, int], int] = {}
+    g = 0
+    for i_ref, rg in enumerate(st.ranges):
+        for wi in range(len(rg.starts)):
+            win_global[(i_ref, wi)] = g
+            g += 1
+    n_windows = g
+    dec_vec = np.full(n_windows, -1, dtype=np.int32)
+
+    jobs = []
+    for i_ref, rg in enumerate(st.ranges):
+        # NOTE: the reference indexes its coverage array by the STORAGE
+        # ref index (blockjoin.c:5046) — wrong when the VCF's chromosome
+        # order differs from the BAM header's. We look up by name and
+        # warn when a VCF contig is absent from the BAM.
+        if opt.cov <= 0:
+            if st.ref_names[i_ref] not in name2cov_rep:
+                log_warn("main_methreport",
+                         f"contig {st.ref_names[i_ref]} not in BAM header; assuming coverage 0")
+            cov = name2cov_rep.get(st.ref_names[i_ref], 0)
+        else:
+            cov = opt.cov
+        cfg = dataclasses.replace(config)
+        cfg.cov_for_selection = cov // 10 + 1
+        cfg.cov_for_runtime = cfg.cov_for_selection * 2
+        n_cand = cov // 4 + 1
+        mine = list(range(len(rg.starts)))
+        if engine != "host" and mine:
+            jobs.append(dict(job_i=i_ref, ref_name=st.ref_names[i_ref],
+                             rg=rg, cfg=cfg, n_cand=n_cand, indices=mine,
+                             perm_key_base=i_ref * 1_000_003))
+        else:
+            for k, wi in enumerate(mine):
+                decision, _ = haplotag_region_given_bam(
+                    st, bam, st.ref_names[i_ref], rg.starts[wi], rg.ends[wi],
+                    cfg, n_cand, "host", opt.n_permutations,
+                    perm_key=i_ref * 1_000_003 + wi)
+                dec_vec[win_global[(i_ref, wi)]] = decision
+                if (k + 1) % 100 == 0:
+                    log_info("main_methreport",
+                             f"scored {k + 1}/{len(mine)} windows on "
+                             f"{st.ref_names[i_ref]}")
+    if jobs:
+        from .kernels.engine_torch import run_jobs_batched
+        results = run_jobs_batched(st, bam, jobs,
+                                   n_permutations=opt.n_permutations,
+                                   engine=engine, device=dev)
+        for job, (decisions, _) in zip(jobs, results):
+            for wi in job["indices"]:
+                dec_vec[win_global[(job["job_i"], wi)]] = decisions[wi]
+
+    n_correct = n_switch = n_fail = tot = 0
+    with open(opt.output_prefix + ".report.tsv", "w") as f:
+        for i_ref, rg in enumerate(st.ranges):
+            for wi, (s, e) in enumerate(zip(rg.starts, rg.ends)):
+                decision = int(dec_vec[win_global[(i_ref, wi)]])
+                f.write(f"{st.ref_names[i_ref]}\t{s}\t{e}\t")
+                if decision == 0:
+                    n_correct += 1
+                    f.write("correct\n")
+                elif decision == 1:
+                    n_switch += 1
+                    f.write("switch\n")
+                else:
+                    n_fail += 1
+                    f.write("fail\n")
+                tot += 1
+                if tot % 100 == 0:
+                    denom = max(n_correct + n_switch, 1)
+                    print(f"Parsed N={tot} regions, currently at "
+                          f"{st.ref_names[i_ref]}:{s}-{e}, "
+                          f"correct/(correct+switch)={n_correct / denom * 100.0:.2f}%, "
+                          f"correct/N={n_correct / tot * 100.0:.2f}%")
+                f.flush()
+    denom = max(n_correct + n_switch, 1)
+    msg = (f"Total N={tot} regions, correct/(correct+switch)="
+           f"{n_correct / denom * 100.0:.2f}%, correct/N={n_correct / max(tot, 1) * 100.0:.2f}%")
+    print(msg)
+    log_info("main_methreport", msg)
+    log_info("main_methreport", f"done, used {Get_T() - T:.1f}s")
     return 0

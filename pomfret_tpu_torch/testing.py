@@ -1,4 +1,5 @@
-"""Packed batches for checking the loop kernel against its plain version.
+"""Packed batches, and a step checker, for holding the kernels against
+their plain versions.
 
 Used by the tests and by chip_smoke.py; the synthetic read data comes from
 pomfret_tpu.testing.
@@ -107,6 +108,39 @@ def near_tie_args(G: int = 8, R: int = 64, S: int = 32):
             n_sites, n_reads.copy(), z, z, np.ones(G, np.int32),
             np.full(G, 14, np.int32), np.ones(G, np.int32))
     return args, 4, 16, layout
+
+
+def checked_step(kernel, plain, in_place=()):
+    """A loop step that runs `kernel` and then `plain` on the same inputs
+    and raises unless every output is equal (exact). `in_place` holds the
+    positions of the arguments both update in place: `plain` gets copies
+    of them taken before the kernel runs. The step returns the kernel's
+    outputs and keeps .calls, .max_abs_err and .first (the first call's
+    arguments, copied)."""
+    import torch
+
+    def step(*args, **kw):
+        copies = [a.clone() if i in in_place else a
+                  for i, a in enumerate(args)]
+        if step.first is None:
+            step.first = ([a.clone() for a in args], kw)
+        got = kernel(*args, **kw)
+        want = plain(*copies, **kw)
+        pairs = zip(*((got, want) if isinstance(got, tuple)
+                      else ((got,), (want,))))
+        for i, (k, p) in enumerate(pairs):
+            err = float((k.double() - p.double()).abs().max()) \
+                if k.numel() else 0.0
+            step.max_abs_err = max(step.max_abs_err, err)
+            if not torch.equal(k, p):
+                raise RuntimeError(
+                    f"{kernel.__name__} != {plain.__name__} at call "
+                    f"{step.calls}, output {i}: max |diff| {err}")
+        step.calls += 1
+        return got
+
+    step.calls, step.max_abs_err, step.first = 0, 0.0, None
+    return step
 
 
 def bench_gap_batch(G: int = 256, n_cand: int = 14):

@@ -1,15 +1,19 @@
-"""The hand-written CUDA loop kernel vs its plain PyTorch version, on the
+"""The hand-written CUDA kernels vs their plain PyTorch versions, on the
 card. Marked `cuda`: without a GPU every test here skips (the same checks
 run as phase 3 of chip_smoke.py). Tolerance: exact — hp by array_equal and
-all of stats, including each lane's own iteration count."""
+all of stats, including each lane's own iteration count; each step of the
+per-iteration kernels (score rows, cnt, hp, flags) equal to its plain
+version's, since both sum the scores exactly."""
 import numpy as np
 import pytest
 import torch
 
+from pomfret_tpu_torch.kernels import engine_fused as tf
 from pomfret_tpu_torch.kernels import engine_fused3 as tf3
 from pomfret_tpu_torch.parallel import batch as tb
 from pomfret_tpu_torch.testing import (N_FUZZ_CARD, bench_gap_batch,
-                                       fuzz_args, near_tie_args)
+                                       checked_step, fuzz_args,
+                                       near_tie_args)
 
 pytestmark = pytest.mark.cuda
 
@@ -58,3 +62,55 @@ def test_dispatch_engines_agree(cuda):
     hk = tb.run_gap_batch(batch, engine="cuda", device=cuda)
     hpl = tb.run_gap_batch(batch, engine="torch", device=cuda)
     assert np.array_equal(hk, hpl)
+
+
+def _gens_stepwise(args, D, nc_cap, device):
+    """Gens 1 and 2 with every kernel step held against its plain version;
+    both loops' (hp, stats) must equal the loop kernel's."""
+    t = [torch.from_numpy(np.ascontiguousarray(a)).to(device) for a in args]
+    score = checked_step(tf.score_candidates_batch, tf.score_plain)
+    step = checked_step(tf.step_fused2, tf.score_commit_plain,
+                        in_place=(3, 4))
+    n1, n2 = tf.score_candidates_batch.launches, tf.step_fused2.launches
+    h1, s1 = tf.run_batch_fused(*t, D=D, nc_cap=nc_cap, score=score)
+    h2, s2 = tf.run_batch_fused2(*t, D=D, nc_cap=nc_cap, step=step)
+    h3, s3 = tf3.run_batch_fused3(*t, D=D, nc_cap=nc_cap)
+    torch.cuda.synchronize()
+    assert tf.score_candidates_batch.launches - n1 == score.calls
+    assert tf.step_fused2.launches - n2 == step.calls
+    assert score.calls == step.calls == int(s3[:, 0].max())
+    for h, s in ((h1, s1), (h2, s2)):
+        assert torch.equal(h, h3) and torch.equal(s, s3)
+    return h3.cpu().numpy(), s3.cpu().numpy()
+
+
+@pytest.mark.parametrize("trial", range(N_FUZZ_CARD))
+def test_step_kernels_match_plain_fuzz(cuda, trial):
+    _gens_stepwise(*fuzz_args(trial), cuda)
+
+
+def test_step_kernels_match_plain_near_tie(cuda):
+    args, D, nc_cap, layout = near_tie_args()
+    hp, _ = _gens_stepwise(args, D, nc_cap, cuda)
+    g, _, row = layout["gate"]
+    assert hp[g, row] == 0
+
+
+def test_gens_agree_bench_shape(cuda):
+    batch, _ = bench_gap_batch(G=64)
+    hp, st = _gens_stepwise(tb.batch_args(batch, 2 * batch.shape3[1] + 64),
+                            batch.D, batch.nc_cap, cuda)
+    assert (hp <= 1).sum() > 0 and (st[:, 3] > 0).all()
+
+
+@pytest.mark.parametrize("gen", ["1", "2"])
+def test_dispatch_gens_agree(cuda, monkeypatch, gen):
+    batch, _ = bench_gap_batch(G=32)
+    h3 = tb.run_gap_batch(batch, engine="cuda", device=cuda)
+    monkeypatch.setenv("POMFRET_FUSED_GEN", gen)
+    name = "score_kernel" if gen == "1" else "score_commit_kernel"
+    n0 = tb.DISPATCH_STATS["kernel_launches"][name]
+    hk = tb.run_gap_batch(batch, engine="cuda", device=cuda)
+    assert tb.DISPATCH_STATS["kernel_launches"][name] > n0
+    hpl = tb.run_gap_batch(batch, engine="torch", device=cuda)
+    assert np.array_equal(hk, h3) and np.array_equal(hpl, h3)

@@ -5,7 +5,11 @@
   a 2-chromosome multi-gap scenario;
 - `pomfret-tpu-torch methphase --engine torch` writes .mp.vcf/.mp.gtf byte
   for byte equal to `pomfret-tpu methphase --engine host` on the cis and
-  trans two-block scenarios.
+  trans two-block scenarios, under each engine generation
+  (POMFRET_FUSED_GEN=1|2|3);
+- `pomfret-tpu-torch report` (--engine torch, gens 3 and 2, and --engine
+  host) writes a .report.tsv byte for byte equal to `pomfret-tpu report
+  --engine host`.
 Tolerance: exact.
 """
 import os
@@ -96,10 +100,17 @@ def _assert_same_files(p1, p2, exts):
             assert f1.read() == f2.read(), ext
 
 
-@pytest.mark.parametrize("trans", [False, True])
-def test_methphase_torch_matches_host(host_runs, tmp_path, trans):
+@pytest.mark.parametrize("trans,gen", [
+    pytest.param(False, "3", id="False"), pytest.param(True, "3", id="True"),
+    pytest.param(False, "2", id="False-gen2"),
+    pytest.param(True, "2", id="True-gen2"),
+    pytest.param(False, "1", id="False-gen1"),
+    pytest.param(True, "1", id="True-gen1")])
+def test_methphase_torch_matches_host(host_runs, tmp_path, monkeypatch,
+                                      trans, gen):
     bam, vcf, p_h = host_runs[trans]
     p_t = str(tmp_path / "torch")
+    monkeypatch.setenv("POMFRET_FUSED_GEN", gen)
     n0 = DISPATCH_STATS["n_dispatches"]
     assert port_main(["methphase", "-o", p_t, "--engine", "torch", "-c",
                       "50", "--vcf", vcf, bam]) == 0
@@ -120,11 +131,51 @@ def test_methphase_host_engine_matches(host_runs, tmp_path):
     _assert_same_files(p_h, p_p, (".mp.vcf", ".mp.gtf", ".mp.tsv"))
 
 
-@pytest.mark.parametrize("cmd", ["report", "varhaptag", "warmup",
-                                 "methstat", "bam2cram"])
+@pytest.mark.parametrize("cmd", ["varhaptag", "warmup", "methstat",
+                                 "bam2cram"])
 def test_unported_subcommands_exit_2(cmd, capsys):
     assert port_main([cmd, "x"]) == 2
     assert "not yet ported" in capsys.readouterr().err
+
+
+_REPORT_ARGS = ["-c", "50", "--chunk-size", "40000", "--chunk-stride",
+                "30000"]  # tests/test_cli_extra.py's report run
+
+
+@pytest.fixture(scope="module")
+def host_report(host_runs):
+    """pomfret_tpu report --engine host on the cis two-block scenario:
+    (bam, vcf, .report.tsv bytes)."""
+    bam, vcf, p_h = host_runs[False]
+    prefix = p_h + "_rep"
+    assert tpu_main(["report", "-o", prefix, "--engine", "host",
+                     *_REPORT_ARGS, "--vcf", vcf, bam]) == 0
+    with open(prefix + ".report.tsv", "rb") as f:
+        return bam, vcf, f.read()
+
+
+@pytest.mark.parametrize("engine,gen", [("torch", "3"), ("torch", "2"),
+                                        ("host", "3")])
+def test_report_matches_host(host_report, tmp_path, monkeypatch, engine,
+                             gen):
+    bam, vcf, ref = host_report
+    monkeypatch.setenv("POMFRET_FUSED_GEN", gen)
+    prefix = str(tmp_path / "rep")
+    n0 = DISPATCH_STATS["n_dispatches"]
+    assert port_main(["report", "-o", prefix, "--engine", engine,
+                      *_REPORT_ARGS, "--vcf", vcf, bam]) == 0
+    # the device path ran for --engine torch, and only for it
+    assert (DISPATCH_STATS["n_dispatches"] > n0) == (engine == "torch")
+    with open(prefix + ".report.tsv", "rb") as f:
+        got = f.read()
+    assert got == ref
+    assert b"correct" in got
+
+
+def test_report_needs_vcf(host_runs, tmp_path):
+    bam, _, p_h = host_runs[False]
+    assert port_main(["report", "-o", str(tmp_path / "x"), "--engine",
+                      "torch", "--gtf", p_h + ".mp.gtf", bam]) == 1
 
 
 def test_engine_choice(monkeypatch):
