@@ -5,7 +5,9 @@
 
 Phases, each printing one line:
  1. card: the GPU's name and power limit (nvidia-smi);
- 2. build: nvcc builds the loop kernel from pomfret_tpu_torch/kernels/csrc;
+ 2. build: nvcc builds the three kernels from pomfret_tpu_torch/kernels/csrc
+    while g++ builds the port's native IO library (io/native); the script
+    fails unless both load;
  3. kernel vs plain: run_batch_fused3 (the loop kernel) against loop_plain
     (plain PyTorch) on the card, on a 10-trial random sweep (testing.
     fuzz_args: the CPU tests' 8 trials, a dense R=1792/D=8/NC=64 window
@@ -19,8 +21,12 @@ Phases, each printing one line:
     loop kernel's and the plain loop's time, each step kernel's time
     against its plain version's, and the whole-loop times of gens 1, 2, 3
     at the bench shape (CUDA events);
- 4. main path: `pomfret-tpu-torch methphase --engine cuda` on the 200-gap
-    scale dataset of bench.py (generated once into .bench_data/), then
+ 4a. warmup: `pomfret-tpu-torch warmup --engine cuda` on the 200-gap scale
+    dataset of bench.py (generated once into .bench_data/ by the port's
+    testing.py): one loop-kernel launch at max_iters=0 per packed shape;
+    prints its time and the shape count;
+ 4. main path: `pomfret-tpu-torch methphase --engine cuda` on that dataset,
+    then
     `--engine torch --device cuda` on the same card; .mp.vcf/.mp.gtf must
     be byte-identical and the loop kernel must have run; prints wall and
     reads/s;
@@ -30,19 +36,36 @@ Phases, each printing one line:
     POMFRET_FUSED_GEN=1, then =2; outputs byte-identical to gen 3's, the
     score kernel (gen 1) or the score-commit kernel (gen 2) launched and
     the loop kernel not; prints wall and reads/s of each;
+ 4d. warmup's worth: on two fresh copies of the package (nothing built,
+    an empty coverage cache each), one process after another: copy a runs
+    methphase --engine cuda twice, copy b warmup then methphase (outputs
+    equal to copy a's); prints each process's wall;
  5. parity: `--engine cuda` against the host oracle (`--engine host`) on a
     2-chromosome x 6-gap scenario and a trans two-block scenario;
     .mp.vcf/.mp.gtf/.mp.tsv must be byte-identical;
+ 5b. host subcommands: varhaptag and methstat on both parity scenarios,
+    bam2cram on the trans one, each exits 0 with outputs not empty; then
+    `methphase --engine cuda` on that CRAM writes the .mp.vcf/.mp.gtf/
+    .mp.tsv of the run on the BAM;
+ 5c. `methphase --profile --engine cuda` on the trans scenario: the
+    torch.profiler trace under <prefix>.profile/ holds a loop_kernel CUDA
+    event, and the outputs equal the run without --profile;
  6. report: `pomfret-tpu-torch report --engine cuda` under gens 3 and 2
     against `report --engine host` on the cis two-block scenario;
     .report.tsv must be byte-identical.
-Then a JSON line of the kernels, and last {"ok": true, "device": {...}}.
+The script then checks that no jax, pomfret_tpu or pomfret_tpu.* module
+was loaded. Then a JSON line of the kernels (with each one's bound: the
+larger of its bytes over the HBM rate and its operations over the f32
+rate, counted from this run's inputs), and last {"ok": true, "device":
+{...}}.
 Any failure raises: the exit code is non-zero and the last line is absent.
 Longer output (per-phase stage seconds) goes to chiprun_out/chip_smoke.json.
 """
+import concurrent.futures
 import hashlib
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -92,6 +115,78 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
+# published peaks of one H100 SXM (NVIDIA's data sheet, at 700 W): HBM3
+# rate and float32 outside the tensor cores
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+
+
+def bound(nbytes, ops):
+    """{bound_ms, bound_by, bytes, ops}: bound_ms is the larger of the
+    bytes over the HBM rate and the operations over the f32 rate."""
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = ops / F32_OPS_PER_S * 1e3
+    if by_bytes >= by_ops:
+        return dict(bound_ms=by_bytes, bound_by="bytes", bytes=nbytes, ops=ops)
+    return dict(bound_ms=by_ops, bound_by="operations", bytes=nbytes, ops=ops)
+
+
+# Operations per (candidate slot, site) scored: one f32 ratio and one add
+# for each of the two haplotypes.
+OPS_PER_SLOT_SITE = 4
+
+
+def loop_bound(t, work, stats, D):
+    """Bound of one loop-kernel batch (`t`: the engines' tensors in order),
+    counted from what this run's data needs (`work`, from loop_plain on the
+    same inputs): the ids cells the kernel must read, each once (per read
+    row, the sites of the ranges it was scored over, or its whole row once
+    committed), each lane's has_mmr and hp_init rows and its count table
+    over its sites read once, hp and stats written once; every valid
+    candidate slot scored over its lane's range [lo, hi) of that
+    iteration."""
+    ids, has_mmr, hp_init = t[0], t[1], t[2]
+    n_reads, n_sites = t[4].long(), t[5].long()
+    nbytes = (work["id_cells"] * ids.element_size()
+              + n_reads.sum() * (has_mmr.element_size()
+                                 + 2 * hp_init.element_size())
+              + n_sites.sum() * 2 * D * 4 + stats.numel() * 4
+              + ids.shape[0] * 8 * 4)                     # scal
+    ops = work["slot_sites"] * OPS_PER_SLOT_SITE
+    return bound(int(nbytes), int(ops))
+
+
+def score_bound(args, kw):
+    """Bound of one score-kernel step: cnt, sums and cids over each lane's
+    site range [min_i, max_i), the ranges, and the (G, 8, NC) rows
+    written; every slot scored over its lane's range."""
+    cnt, sums, cids, min_i, max_i = args
+    G, NC, S = cids.shape
+    span = (max_i.long() - min_i.long()).clamp(min=0).sum()
+    nbytes = (span * (2 * kw["D"] * 4 + 2 * 4 + NC * cids.element_size())
+              + G * 2 * 4 + G * 8 * NC * 4)
+    return bound(int(nbytes), int(span * NC * OPS_PER_SLOT_SITE))
+
+
+def score_commit_bound(args, kw):
+    """Bound of one score-commit step: the whole count table (its site
+    sums give the range), cids over the range (from the same sums, by
+    the plain helper), scal, cmeta, the candidates' hp read and written
+    and the flags; the sums, then every slot scored over its range."""
+    from pomfret_tpu_torch.kernels.engine_fused import _range_from_seed_b
+    scal, cmeta, cids, cnt, hp = args
+    G, NC, S = cids.shape
+    D = kw["D"]
+    tot = cnt.view(G, D, 2, S).sum(dim=(1, 2))
+    lo, hi = _range_from_seed_b(tot, scal[:, 2], scal[:, 0], scal[:, 1],
+                                scal[:, 3])
+    span = (hi.long() - lo.long()).clamp(min=0).sum()
+    nbytes = (cnt.numel() * 4 + span * NC * cids.element_size()
+              + scal.numel() * 4 + cmeta.numel() * 4 + 2 * G * NC * 4
+              + G * 8 * 4)
+    return bound(int(nbytes), int(cnt.numel() + span * NC * OPS_PER_SLOT_SITE))
+
+
 def phase_kernel_vs_plain(dev):
     import numpy as np
     import torch
@@ -106,10 +201,10 @@ def phase_kernel_vs_plain(dev):
     step = checked_step(f12.step_fused2, f12.score_commit_plain,
                         in_place=(3, 4))
 
-    def run_both(args, D, nc_cap):
+    def run_both(args, D, nc_cap, work=None):
         t = [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in args]
         hk, sk = f3.run_batch_fused3(*t, D=D, nc_cap=nc_cap)
-        hpl, spl = f3.loop_plain(*t, D=D, nc_cap=nc_cap)
+        hpl, spl = f3.loop_plain(*t, D=D, nc_cap=nc_cap, work=work)
         torch.cuda.synchronize()
         err = int((hk.long() - hpl.long()).abs().max())
         if not (torch.equal(hk, hpl) and torch.equal(sk, spl)):
@@ -138,7 +233,8 @@ def phase_kernel_vs_plain(dev):
     batch, n_reads = bench_gap_batch(G=256)
     G, R, S = batch.shape3
     args = batch_args(batch, 2 * R + 64)
-    t, hk, sk, err = run_both(args, batch.D, batch.nc_cap)
+    work = {}
+    t, hk, sk, err = run_both(args, batch.D, batch.nc_cap, work)
     max_err = max(max_err, err)
     tagged = int((hk <= 1).sum())
     check(tagged > 0, "the kernel tagged no read at the bench shape")
@@ -153,6 +249,9 @@ def phase_kernel_vs_plain(dev):
     # score-commit step updates its copies in place from call to call)
     sa, skw = score.first
     ca, ckw = step.first
+    bounds = {"loop_kernel": loop_bound(t, work, sk, batch.D),
+              "score_kernel": score_bound(sa, skw),
+              "score_commit_kernel": score_commit_bound(ca, ckw)}
     steps = {
         "score_kernel": (
             cuda_ms(lambda: f12.score_candidates_batch(*sa, **skw), 50),
@@ -161,7 +260,7 @@ def phase_kernel_vs_plain(dev):
             cuda_ms(lambda: f12.step_fused2(*ca, **ckw), 50),
             cuda_ms(lambda: f12.score_commit_plain(*ca, **ckw), 50))}
     iters = int(sk[:, 0].max())
-    return dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
+    return dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms, bounds=bounds,
                 fuzz_trials=N_FUZZ_CARD, G=G, R=R, S=S, D=batch.D,
                 nc_cap=batch.nc_cap, iters=iters, tagged=tagged,
                 reads=G * n_reads, gen_loop_ms=gen_ms,
@@ -215,6 +314,92 @@ def phase_profile(base):
                 top_device_s={n: us / 1e6 for n, us in top})
 
 
+def phase_warmup_worth(base):
+    """What warmup leaves for a later process. Two fresh copies of the
+    package (nothing built) with an empty coverage cache each, every step
+    a fresh process: copy a runs `methphase --engine cuda` twice, copy b
+    runs `warmup --engine cuda` and then `methphase`. Walls of each process
+    in seconds."""
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_cold_")
+    walls = {}
+    for name, steps in (("a", ("methphase", "methphase")),
+                        ("b", ("warmup", "methphase"))):
+        tree, spool = (os.path.join(tmp, name + x) for x in ("", "_spool"))
+        shutil.copytree(os.path.join(ROOT, "pomfret_tpu_torch"),
+                        os.path.join(tree, "pomfret_tpu_torch"),
+                        ignore=shutil.ignore_patterns("_build", "__pycache__"))
+        os.makedirs(spool)
+        env = dict(os.environ, PYTHONPATH=tree, POMFRET_SPOOL_DIR=spool)
+        for i, cmd in enumerate(steps):
+            argv = [sys.executable, "-m", "pomfret_tpu_torch.cli", cmd, "-o",
+                    os.path.join(tmp, f"{name}{i}"), "--engine", "cuda", *base]
+            t0 = time.perf_counter()
+            p = subprocess.run(argv, cwd=tree, env=env, capture_output=True,
+                               text=True, timeout=600)
+            check(p.returncode == 0, f"{' '.join(argv)} exited "
+                  f"{p.returncode}: {p.stderr[-2000:]}")
+            walls[f"{name}{i + 1}_{cmd}"] = time.perf_counter() - t0
+    same_outputs(os.path.join(tmp, "a1"), os.path.join(tmp, "b1"),
+                 (".mp.vcf", ".mp.gtf"))
+    return walls
+
+
+def nonempty(*paths):
+    for p in paths:
+        check(os.path.getsize(p) > 0, f"{p} is empty")
+
+
+def phase_host_subcommands(scenarios):
+    """varhaptag and methstat on each (dir, bam, vcf) scenario, bam2cram on
+    the last one, then methphase --engine cuda on its CRAM against the
+    parity phase's run on its BAM (<dir>/cuda). Returns seconds by step."""
+    secs = {}
+
+    def timed(name, argv):
+        t0 = time.perf_counter()
+        rc = cli_main(argv)
+        check(rc == 0, f"{' '.join(argv)} exited {rc}")
+        secs[name] = secs.get(name, 0.0) + time.perf_counter() - t0
+
+    for d, bam, vcf in scenarios:
+        out = os.path.join(d, "vh.bam")
+        timed("varhaptag", ["varhaptag", "-o", out, vcf, bam])
+        nonempty(out, out + ".bai", out + ".varhaptag.tsv")
+        out = os.path.join(d, "ms")
+        timed("methstat", ["methstat", "-o", out, "-c", "50", "--vcf", vcf,
+                           bam])
+        nonempty(out + ".methstat.tsv")
+    cram = os.path.join(d, "x.cram")
+    timed("bam2cram", ["bam2cram", bam, cram])
+    nonempty(cram, cram + ".crai")
+    timed("methphase_cram", ["methphase", "-o", os.path.join(d, "cram"),
+                             "--engine", "cuda", "-c", "50", "--output-tsv",
+                             "--vcf", vcf, cram])
+    same_outputs(os.path.join(d, "cram"), os.path.join(d, "cuda"),
+                 (".mp.vcf", ".mp.gtf", ".mp.tsv"))
+    return secs
+
+
+def phase_profile_flag(d, bam, vcf):
+    """methphase --profile --engine cuda: its Chrome trace must hold a
+    loop_kernel CUDA event, its outputs those of the parity phase's run
+    without --profile (<d>/cuda)."""
+    prefix = os.path.join(d, "prof")
+    methphase(["-o", prefix, "--profile", "--engine", "cuda", "-c", "50",
+               "--output-tsv", "--vcf", vcf, bam])
+    trace = os.path.join(prefix + ".profile", "trace.json")
+    with open(trace) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    n_loop = sum("loop_kernel" in e.get("name", "") for e in kernels)
+    check(n_loop > 0, f"{trace} holds no loop_kernel event "
+          f"({len(kernels)} kernel events)")
+    same_outputs(prefix, os.path.join(d, "cuda"),
+                 (".mp.vcf", ".mp.gtf", ".mp.tsv"))
+    return dict(trace=os.path.basename(trace), kernel_events=len(kernels),
+                loop_kernel_events=n_loop)
+
+
 def scale_dataset():
     """bench.py's 200-gap scale dataset, cached under .bench_data/ (same key
     as bench.py, so either can reuse the other's copy)."""
@@ -224,7 +409,7 @@ def scale_dataset():
     bam = os.path.join(d, "scale.bam")
     vcf = os.path.join(d, "multichrom.vcf.gz")
     if not all(os.path.exists(p) for p in (bam, vcf, bam + ".bai")):
-        from pomfret_tpu.testing import make_multichrom_multigap_scenario
+        from pomfret_tpu_torch.testing import make_multichrom_multigap_scenario
         os.makedirs(d, exist_ok=True)
         make_multichrom_multigap_scenario(
             d, bam_threads=max(2, os.cpu_count() or 2), bam_name="scale.bam",
@@ -233,18 +418,21 @@ def scale_dataset():
     return bam, vcf, n_gaps
 
 
-def methphase(args):
+def cli_main(argv):
     from pomfret_tpu_torch.cli import main
+    return main(argv)
+
+
+def methphase(args):
     t0 = time.perf_counter()
-    rc = main(["methphase", *args])
+    rc = cli_main(["methphase", *args])
     wall = time.perf_counter() - t0
     check(rc == 0, f"methphase {' '.join(args)} exited {rc}")
     return wall
 
 
 def methreport(args):
-    from pomfret_tpu_torch.cli import main
-    rc = main(["report", *args])
+    rc = cli_main(["report", *args])
     check(rc == 0, f"report {' '.join(args)} exited {rc}")
 
 
@@ -289,9 +477,10 @@ def main():
     os.environ["POMFRET_NO_HOST_FALLBACK"] = "1"
     sys.path.insert(0, ROOT)
     import pomfret_tpu_torch  # noqa: F401  (absent beside a lone script)
+    from pomfret_tpu_torch.io import native
     from pomfret_tpu_torch.kernels import _build
     from pomfret_tpu_torch.parallel.batch import DISPATCH_STATS
-    from pomfret_tpu.utils.stats import reset_stages, stage_report
+    from pomfret_tpu_torch.utils.stats import reset_stages, stage_report
 
     dev = torch.device("cuda")
     kind = torch.cuda.get_device_name(0)
@@ -302,11 +491,23 @@ def main():
         f"{torch.version.cuda})")
 
     t0 = time.perf_counter()
-    lib = _build.build()
-    _build.get_lib()
+    # g++ builds the native IO library while nvcc builds the kernels
+    with concurrent.futures.ThreadPoolExecutor(1) as ex:
+        native_lib = ex.submit(native.get_lib)
+        lib = _build.build()
+        _build.get_lib()
+        native_lib = native_lib.result()
     report["build_s"] = time.perf_counter() - t0
-    say("build", f"{os.path.relpath(lib, ROOT)} in {report['build_s']:.1f} s "
-        f"(nvcc {' '.join(_build.NVCC_FLAGS)})")
+    check(native_lib is not None, "the port's native IO library did not "
+          "build or load (host IO would run on its Python fallbacks)")
+    native_path = os.path.relpath(native_lib._name, ROOT)
+    check(native_path.startswith(os.path.join("pomfret_tpu_torch", "io",
+                                              "native", "_build")),
+          f"native IO library loaded from {native_path}")
+    report["native_lib"] = native_path
+    say("build", f"{os.path.relpath(lib, ROOT)} (nvcc "
+        f"{' '.join(_build.NVCC_FLAGS)}) and {native_path} (g++) in "
+        f"{report['build_s']:.1f} s")
 
     kv = phase_kernel_vs_plain(dev)
     report["kernel_vs_plain"] = kv
@@ -333,6 +534,21 @@ def main():
     p_c, p_c2, p_t = (os.path.join(work, n) for n in ("cuda", "cuda2",
                                                        "torch"))
     base = ["--vcf", vcf, bam]
+    n0 = DISPATCH_STATS["n_dispatches"]
+    zero_counts()  # phase 3 called the wrappers outside the dispatch layer
+    t0 = time.perf_counter()
+    rc = cli_main(["warmup", "-o", os.path.join(work, "warmup"), "--engine",
+                   "cuda", *base])
+    check(rc == 0, f"warmup exited {rc}")
+    wu = dict(wall_s=time.perf_counter() - t0,
+              shapes=DISPATCH_STATS["n_dispatches"] - n0,
+              loop_kernel_launches=read_counts()["loop_kernel"])
+    report["warmup"] = wu
+    check(wu["shapes"] > 0 and wu["loop_kernel_launches"] == wu["shapes"],
+          f"warmup: {wu}")
+    say("warmup", f"warmup --engine cuda on {n_gaps} gaps: {wu['wall_s']:.2f} "
+        f"s, {wu['shapes']} packed shape(s), one loop-kernel launch each at "
+        f"max_iters=0; {card}")
     methphase(["-o", p_c2, "--engine", "cuda", *base])  # cold: first use
     # the main path, counted from zero: only its launches count
     zero_counts()
@@ -406,8 +622,13 @@ def main():
                                           "score_commit_kernel")))
         + f" (gen 3 {wall_c:.2f} s); {card}")
 
-    from pomfret_tpu.testing import (make_multichrom_multigap_scenario,
-                                     make_two_block_scenario)
+    report["warmup_worth"] = ww = phase_warmup_worth(base)
+    say("warmup", "fresh processes on unbuilt copies of the package, empty "
+        "coverage cache: " + ", ".join(f"{k} {v:.2f} s" for k, v in ww.items())
+        + f"; {card}")
+
+    from pomfret_tpu_torch.testing import (make_multichrom_multigap_scenario,
+                                           make_two_block_scenario)
     d1, d2 = os.path.join(work, "multi"), os.path.join(work, "trans")
     os.makedirs(d1)
     os.makedirs(d2)
@@ -427,6 +648,19 @@ def main():
                           for (d, e), w in walls.items()}
     say("parity", "cuda == host oracle (.mp.vcf/.mp.gtf/.mp.tsv) on 2 chroms "
         "x 6 gaps and the trans two-block scenario")
+
+    report["host_subcommands_s"] = hs = phase_host_subcommands(
+        ((d1, bam1, vcf1), (d2, bam2, vcf2)))
+    say("host", "varhaptag, methstat (both parity scenarios) and bam2cram "
+        "(trans) exit 0 with outputs; methphase --engine cuda on the CRAM == "
+        "on the BAM (.mp.vcf/.mp.gtf/.mp.tsv); "
+        + ", ".join(f"{k} {v:.1f} s" for k, v in hs.items()))
+
+    report["profile_trace"] = pt = phase_profile_flag(d2, bam2, vcf2)
+    say("trace", f"methphase --profile --engine cuda: {pt['trace']} holds "
+        f"{pt['loop_kernel_events']} loop_kernel CUDA event(s) among "
+        f"{pt['kernel_events']} kernel events; outputs == the run without "
+        "--profile")
 
     d3 = os.path.join(work, "report")
     os.makedirs(d3)
@@ -452,27 +686,34 @@ def main():
         "(.report.tsv) on the cis two-block scenario")
 
     loaded = sorted(m for m in sys.modules
-                    if m == "jax" or m.startswith(("jax.",
-                                                   "pomfret_tpu.kernels",
-                                                   "pomfret_tpu.parallel")))
-    check(not loaded, f"JAX-side modules loaded: {loaded}")
+                    if m in ("jax", "pomfret_tpu")
+                    or m.startswith(("jax.", "pomfret_tpu.")))
+    check(not loaded, f"the JAX package or jax was loaded: {loaded}")
 
     out_dir = os.path.join(ROOT, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
         json.dump(report, f, indent=1, default=str)
     csrc = "pomfret_tpu_torch/kernels/csrc/"
+    bnd = kv["bounds"]
+    # library_ms is null for each: no single PyTorch call computes a greedy
+    # loop, a masked ratio-sum over gathered count rows, or a score-and-
+    # commit step
     print(json.dumps({"kernels": [
         {"name": "loop_kernel", "route": "cuda",
          "source": csrc + "loop_kernel.cu",
          "replaces": "pomfret_tpu/kernels/engine_fused3.py:126",
          "launches": counts["loop_kernel"], "max_abs_err": kv["max_abs_err"],
-         "ms": kv["ms"], "plain_ms": kv["plain_ms"]}] + [
+         "ms": kv["ms"], "plain_ms": kv["plain_ms"],
+         "bound_ms": bnd["loop_kernel"]["bound_ms"],
+         "bound_by": bnd["loop_kernel"]["bound_by"], "library_ms": None}] + [
         {"name": name, "route": "cuda", "source": csrc + f"{name}.cu",
          "replaces": f"pomfret_tpu/kernels/engine_fused.py:{line}",
          "launches": gens[gen]["kernel_launches"][name],
          "max_abs_err": kv["step_max_abs_err"][name],
-         "ms": kv["step_ms"][name], "plain_ms": kv["step_plain_ms"][name]}
+         "ms": kv["step_ms"][name], "plain_ms": kv["step_plain_ms"][name],
+         "bound_ms": bnd[name]["bound_ms"], "bound_by": bnd[name]["bound_by"],
+         "library_ms": None}
         for name, line, gen in (("score_kernel", 80, "1"),
                                 ("score_commit_kernel", 273, "2"))]}))
     print(card)

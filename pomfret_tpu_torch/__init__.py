@@ -1,11 +1,13 @@
 """pomfret_tpu_torch — the PyTorch/CUDA port of pomfret_tpu.
 
-The host layers (io/, core/, utils/, testing.py and the jax-free parts of
-pipeline.py and cli.py) are imported from `pomfret_tpu`; this package holds
-the device engine, written for torch tensors on an explicit `device`, with
-the greedy-loop kernel hand-written in CUDA C++ for Hopper (kernels/csrc).
-Module names mirror pomfret_tpu's, so each module's counterpart is easy to
-find. Nothing here imports jax.
+The host layers are copies of pomfret_tpu's: io/ (the BGZF/BAM/CRAM stack
+and the native C++ IO library, built into io/native/_build/), core/ (the
+host oracle among them), utils/, the data makers of testing.py and the host
+parts of pipeline.py and cli.py. The device engine is written for torch
+tensors on an explicit `device`, with the greedy-loop kernels hand-written
+in CUDA C++ for Hopper (kernels/csrc). Module names mirror pomfret_tpu's,
+so each module's counterpart is easy to find. Nothing here imports jax or
+pomfret_tpu.
 """
 from __future__ import annotations
 
@@ -24,11 +26,11 @@ def resolve_device(engine: str, device: Optional[str] = None
 
     - "cuda": the hand-written kernel; needs a card, raises otherwise.
     - "torch": the plain PyTorch loop on `device` (default: the CPU).
-    - "host": the host oracle (pomfret_tpu.core.engine_host); no device.
+    - "host": the host oracle (core.engine_host); no device.
     - "auto": "cuda" when a card is present, else "host" (logged).
     """
     import torch
-    from pomfret_tpu.utils.log import log_info
+    from .utils.log import log_info
 
     if engine not in ENGINES:
         raise ValueError(f"unknown engine {engine!r}; expected one of {ENGINES}")

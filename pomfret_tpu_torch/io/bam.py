@@ -1,0 +1,628 @@
+"""BAM decoding: header, alignment records, BAI index, region queries.
+
+Replaces htslib's sam_index_load / sam_itr_querys / sam_itr_next path used by
+the reference (blockjoin.c:558-593, 1043-1173). Pure Python + struct for
+correctness; the hot batch-decode path has a C++/ctypes fast lane (io/native).
+"""
+from __future__ import annotations
+
+import struct
+import threading as _threading
+from typing import Iterator, List, Optional, Tuple
+
+from .bgzf import BgzfReader
+
+# generation toggle for the process-global reuse arenas (_inflate_range
+# reuse=True): per-thread so concurrent readers on different threads get
+# independent pairs
+_REUSE_TL = _threading.local()
+
+SEQ_NT16 = "=ACMGRSVTWYHKDBN"
+import numpy as _np_mod
+_SEQ_LUT = _np_mod.frombuffer(SEQ_NT16.encode(), dtype=_np_mod.uint8)
+CIGAR_OPS = "MIDNSHP=X"
+# CIGAR ops that consume reference: M, D, N, =, X
+_REF_CONSUME = (1 << 0) | (1 << 2) | (1 << 3) | (1 << 7) | (1 << 8)
+# ops that consume query: M, I, S, =, X
+_QRY_CONSUME = (1 << 0) | (1 << 1) | (1 << 4) | (1 << 7) | (1 << 8)
+
+FUNMAP = 4
+FREVERSE = 16
+FSECONDARY = 256
+FSUPPLEMENTARY = 2048
+
+
+class BamRecord:
+    __slots__ = (
+        "refID", "pos", "mapq", "bin", "flag", "l_seq", "next_refID",
+        "next_pos", "tlen", "qname", "cigar", "seq_packed", "qual", "aux",
+        "_seq_cache",
+    )
+
+    def __init__(self, refID, pos, mapq, bin_, flag, l_seq, next_refID,
+                 next_pos, tlen, qname, cigar, seq_packed, qual, aux):
+        self.refID = refID
+        self.pos = pos
+        self.mapq = mapq
+        self.bin = bin_
+        self.flag = flag
+        self.l_seq = l_seq
+        self.next_refID = next_refID
+        self.next_pos = next_pos
+        self.tlen = tlen
+        self.qname = qname
+        self.cigar = cigar          # tuple of u32 (len<<4 | op)
+        self.seq_packed = seq_packed
+        self.qual = qual
+        self.aux = aux              # raw aux bytes
+        self._seq_cache = None
+
+    # ---- sequence access ----
+    def seq_base(self, i: int) -> str:
+        b = self.seq_packed[i >> 1]
+        return SEQ_NT16[(b >> 4) if (i & 1) == 0 else (b & 0xF)]
+
+    def seq(self) -> str:
+        if self._seq_cache is None:
+            import numpy as _np
+            b = _np.frombuffer(self.seq_packed, dtype=_np.uint8)
+            out = _np.empty(2 * len(b), dtype=_np.uint8)
+            out[0::2] = _SEQ_LUT[b >> 4]
+            out[1::2] = _SEQ_LUT[b & 0xF]
+            self._seq_cache = out[: self.l_seq].tobytes().decode("ascii")
+        return self._seq_cache
+
+    @property
+    def is_reverse(self) -> bool:
+        return bool(self.flag & FREVERSE)
+
+    # ---- cigar ----
+    def cigar_tuples(self) -> List[Tuple[int, int]]:
+        return [(c & 0xF, c >> 4) for c in self.cigar]
+
+    def endpos(self) -> int:
+        return bam_endpos(self)
+
+    def query_len_from_cigar(self) -> int:
+        n = 0
+        for c in self.cigar:
+            if _QRY_CONSUME >> (c & 0xF) & 1:
+                n += c >> 4
+        return n
+
+    # ---- aux tags ----
+    def get_tag(self, tag: str):
+        """Return decoded aux value or None (mirrors bam_aux_get semantics)."""
+        raw = self.aux
+        t = tag.encode()
+        i = 0
+        n = len(raw)
+        while i + 3 <= n:
+            cur = raw[i : i + 2]
+            typ = raw[i + 2]
+            j, val = _decode_aux_value(raw, i + 3, typ)
+            if cur == t:
+                return val
+            i = j
+        return None
+
+    def set_int_tag(self, tag: str, value: int) -> None:
+        """Remove existing `tag` then append as the smallest unsigned/signed
+        int type, mirroring bam_aux_update_int (blockjoin.c:3092)."""
+        self.remove_tag(tag)
+        t = tag.encode()
+        if 0 <= value <= 0xFF:
+            self.aux = self.aux + t + b"C" + struct.pack("<B", value)
+        elif -128 <= value < 0:
+            self.aux = self.aux + t + b"c" + struct.pack("<b", value)
+        elif 0 <= value <= 0xFFFF:
+            self.aux = self.aux + t + b"S" + struct.pack("<H", value)
+        elif -32768 <= value < 0:
+            self.aux = self.aux + t + b"s" + struct.pack("<h", value)
+        elif value >= 0:
+            self.aux = self.aux + t + b"I" + struct.pack("<I", value)
+        else:
+            self.aux = self.aux + t + b"i" + struct.pack("<i", value)
+
+    def remove_tag(self, tag: str) -> None:
+        raw = self.aux
+        t = tag.encode()
+        i = 0
+        n = len(raw)
+        while i + 3 <= n:
+            cur = raw[i : i + 2]
+            typ = raw[i + 2]
+            j, _ = _decode_aux_value(raw, i + 3, typ, skip_only=True)
+            if cur == t:
+                self.aux = raw[:i] + raw[j:]
+                return
+            i = j
+
+
+def _decode_aux_value(raw: bytes, i: int, typ: int, skip_only: bool = False):
+    c = chr(typ)
+    if c == "A":
+        return i + 1, (None if skip_only else chr(raw[i]))
+    if c == "c":
+        return i + 1, (None if skip_only else struct.unpack_from("<b", raw, i)[0])
+    if c == "C":
+        return i + 1, (None if skip_only else raw[i])
+    if c == "s":
+        return i + 2, (None if skip_only else struct.unpack_from("<h", raw, i)[0])
+    if c == "S":
+        return i + 2, (None if skip_only else struct.unpack_from("<H", raw, i)[0])
+    if c == "i":
+        return i + 4, (None if skip_only else struct.unpack_from("<i", raw, i)[0])
+    if c == "I":
+        return i + 4, (None if skip_only else struct.unpack_from("<I", raw, i)[0])
+    if c == "f":
+        return i + 4, (None if skip_only else struct.unpack_from("<f", raw, i)[0])
+    if c in ("Z", "H"):
+        j = raw.index(b"\x00", i)
+        return j + 1, (None if skip_only else raw[i:j].decode())
+    if c == "B":
+        sub = chr(raw[i])
+        cnt = struct.unpack_from("<i", raw, i + 1)[0]
+        sz = {"c": 1, "C": 1, "s": 2, "S": 2, "i": 4, "I": 4, "f": 4}[sub]
+        j = i + 5 + cnt * sz
+        if skip_only:
+            return j, None
+        fmt = "<" + str(cnt) + sub.replace("C", "B").replace("S", "H")
+        vals = struct.unpack_from(fmt, raw, i + 5)
+        return j, (sub, list(vals))
+    raise ValueError(f"unknown aux type {c!r}")
+
+
+def bam_endpos(rec: BamRecord) -> int:
+    """Reference-consumed end position; pos+1 when no ref-consuming op
+    (mirrors htslib bam_endpos)."""
+    if rec.flag & FUNMAP or not rec.cigar:
+        return rec.pos + 1
+    n = 0
+    for c in rec.cigar:
+        if _REF_CONSUME >> (c & 0xF) & 1:
+            n += c >> 4
+    return rec.pos + (n if n > 0 else 1)
+
+
+def decode_record(buf: bytes, off: int) -> Tuple[BamRecord, int]:
+    """Decode one BAM record starting at `off`; return (record, next_off)."""
+    block_size = struct.unpack_from("<i", buf, off)[0]
+    p = off + 4
+    end = p + block_size
+    (refID, pos, l_read_name, mapq, bin_, n_cigar, flag, l_seq,
+     next_refID, next_pos, tlen) = struct.unpack_from("<iiBBHHHiiii", buf, p)
+    p += 32
+    qname = buf[p : p + l_read_name - 1].decode()
+    p += l_read_name
+    cigar = struct.unpack_from("<%dI" % n_cigar, buf, p) if n_cigar else ()
+    p += 4 * n_cigar
+    nseq = (l_seq + 1) // 2
+    seq_packed = buf[p : p + nseq]
+    p += nseq
+    qual = buf[p : p + l_seq]
+    p += l_seq
+    aux = buf[p:end]
+    return (
+        BamRecord(refID, pos, mapq, bin_, flag, l_seq, next_refID, next_pos,
+                  tlen, qname, cigar, seq_packed, qual, aux),
+        end,
+    )
+
+
+# ---------------------------------------------------------------------------
+# BAI index
+# ---------------------------------------------------------------------------
+
+def _reg2bins(beg: int, end: int) -> List[int]:
+    """Bins overlapping [beg, end), 5-level binning scheme (SAM spec)."""
+    bins = [0]
+    end -= 1
+    for shift, off in ((26, 1), (23, 9), (20, 73), (17, 585), (14, 4681)):
+        bins.extend(range(off + (beg >> shift), off + (end >> shift) + 1))
+    return bins
+
+
+def reg2bin(beg: int, end: int) -> int:
+    end -= 1
+    if beg >> 14 == end >> 14:
+        return ((1 << 15) - 1) // 7 + (beg >> 14)
+    if beg >> 17 == end >> 17:
+        return ((1 << 12) - 1) // 7 + (beg >> 17)
+    if beg >> 20 == end >> 20:
+        return ((1 << 9) - 1) // 7 + (beg >> 20)
+    if beg >> 23 == end >> 23:
+        return ((1 << 6) - 1) // 7 + (beg >> 23)
+    if beg >> 26 == end >> 26:
+        return ((1 << 3) - 1) // 7 + (beg >> 26)
+    return 0
+
+
+class BaiIndex:
+    def __init__(self, path: str):
+        with open(path, "rb") as f:
+            data = f.read()
+        if data[:4] != b"BAI\x01":
+            raise ValueError(f"not a BAI index: {path}")
+        p = 4
+        n_ref = struct.unpack_from("<i", data, p)[0]
+        p += 4
+        self.bins: List[dict] = []
+        self.intervals: List[List[int]] = []
+        for _ in range(n_ref):
+            n_bin = struct.unpack_from("<i", data, p)[0]
+            p += 4
+            bd = {}
+            for _ in range(n_bin):
+                b, n_chunk = struct.unpack_from("<Ii", data, p)
+                p += 8
+                chunks = []
+                for _ in range(n_chunk):
+                    cb, ce = struct.unpack_from("<QQ", data, p)
+                    p += 16
+                    chunks.append((cb, ce))
+                bd[b] = chunks
+            n_intv = struct.unpack_from("<i", data, p)[0]
+            p += 4
+            ioff = list(struct.unpack_from("<%dQ" % n_intv, data, p))
+            p += 8 * n_intv
+            self.bins.append(bd)
+            self.intervals.append(ioff)
+
+    def chunks_for_region(self, refID: int, beg: int, end: int):
+        if refID < 0 or refID >= len(self.bins):
+            return []
+        bd = self.bins[refID]
+        min_off = 0
+        ivs = self.intervals[refID]
+        w = beg >> 14
+        if w < len(ivs):
+            min_off = ivs[w]
+        chunks = []
+        for b in _reg2bins(beg, end):
+            if b in bd and b != 37450:
+                for cb, ce in bd[b]:
+                    if ce > min_off:
+                        chunks.append((max(cb, min_off), ce))
+        chunks.sort()
+        # merge adjacent/overlapping
+        merged = []
+        for cb, ce in chunks:
+            if merged and cb <= merged[-1][1]:
+                if ce > merged[-1][1]:
+                    merged[-1] = (merged[-1][0], ce)
+            else:
+                merged.append((cb, ce))
+        return merged
+
+
+# ---------------------------------------------------------------------------
+# BAM reader
+# ---------------------------------------------------------------------------
+
+class BamReader:
+    def __init__(self, path: str, threads: int = 1):
+        self.path = path
+        self._bgzf = BgzfReader(path, threads=threads)
+        magic = self._bgzf.read(4)
+        if magic != b"BAM\x01":
+            raise ValueError(f"not a BAM file: {path}")
+        l_text = struct.unpack("<i", self._bgzf.read(4))[0]
+        self.header_text = self._bgzf.read(l_text).decode(errors="replace")
+        n_ref = struct.unpack("<i", self._bgzf.read(4))[0]
+        self.ref_names: List[str] = []
+        self.ref_lens: List[int] = []
+        for _ in range(n_ref):
+            l_name = struct.unpack("<i", self._bgzf.read(4))[0]
+            name = self._bgzf.read(l_name)[:-1].decode()
+            l_ref = struct.unpack("<i", self._bgzf.read(4))[0]
+            self.ref_names.append(name)
+            self.ref_lens.append(l_ref)
+        self._data_voffset = self._bgzf.tell_virtual()
+        self._name2id = {n: i for i, n in enumerate(self.ref_names)}
+        self._index: Optional[BaiIndex] = None
+        self._index_tried = False
+        import threading
+        self._span_cache = None  # rolling inflate cache (_inflate_range)
+        self._span_lock = threading.Lock()
+
+    # ---- index ----
+    def _load_index(self) -> Optional[BaiIndex]:
+        if not self._index_tried:
+            self._index_tried = True
+            import os
+            for cand in (self.path + ".bai", self.path[:-4] + ".bai" if self.path.endswith(".bam") else None):
+                if cand and os.path.exists(cand):
+                    self._index = BaiIndex(cand)
+                    break
+        return self._index
+
+    def ref_id(self, name: str) -> int:
+        return self._name2id.get(name, -1)
+
+    # ---- iteration ----
+    def _iter_from(self, voffset: int, stop_voffset: Optional[int] = None) -> Iterator[BamRecord]:
+        bg = self._bgzf
+        bg.seek_virtual(voffset)
+        while True:
+            if stop_voffset is not None and bg.tell_virtual() >= stop_voffset:
+                return
+            head = bg.read(4)
+            if len(head) < 4:
+                return
+            block_size = struct.unpack("<i", head)[0]
+            body = bg.read(block_size)
+            if len(body) < block_size:
+                return
+            rec, _ = decode_record(head + body, 0)
+            yield rec
+
+    def fetch_all(self) -> Iterator[BamRecord]:
+        """Stream every record in file order (the sam_itr_querys('.') path)."""
+        return self._iter_from(self._data_voffset)
+
+    def scan_columns(self):
+        """Columnar whole-file scan via the C++ fast path: returns
+        (cols dict, decompressed buffer) or (None, None) when unavailable.
+        cols has rec_off/refID/pos/flag/mapq/l_seq/endpos/hp/de arrays."""
+        try:
+            from . import native
+        except ImportError:
+            return None, None
+        if not native.native_available():
+            return None, None
+        buf = self._bgzf.read_all()
+        offs, sizes = self._bgzf.block_offsets()
+        import numpy as _np
+        plain_of_block = dict(zip(offs, _np.concatenate([[0], _np.cumsum(sizes)[:-1]]).astype(int))) if offs else {}
+        v = self._data_voffset
+        blk = v >> 16
+        if blk not in plain_of_block:
+            return None, None
+        start_plain = plain_of_block[blk] + (v & 0xFFFF)
+        cols = native.bam_scan(buf, int(start_plain))
+        if cols is None:
+            return None, None
+        return cols, buf
+
+    def _inflate_range(self, b0: int, slice_end: int, reuse: bool = False):
+        """Inflate compressed range [b0, slice_end) with a rolling cache.
+
+        Consecutive gap windows overlap heavily (±READBACK halos around
+        gaps ~90 kb apart share 40-70% of their BGZF blocks), so re-
+        inflating every window from scratch wastes most of the inflate
+        work. The cache keeps the last inflated range + its block index;
+        a request overlapping the cached tail only inflates the NEW tail
+        and reuses the cached prefix. Returns (plain ndarray, abs block
+        offsets ndarray, per-block plain sizes ndarray) for [b0, slice_end)
+        or None. Thread-safe: cache swaps happen under a lock, inflation
+        runs outside it (concurrent misses may duplicate work, never
+        corrupt)."""
+        import numpy as _np
+        from . import native
+        raw = self._bgzf._raw
+
+        if reuse:
+            # chrom-source segment scans: decompress into a thread-local
+            # double-buffered arena (generation alternates per call, so
+            # the PREVIOUS segment's plain view stays valid while this one
+            # is produced — the SEG_PIPE producer contract) and bypass the
+            # span cache entirely (sequential disjoint segments never hit
+            # it, and cached views into a recycled arena would go stale).
+            # The arena pair is PROCESS-global per thread (names do not
+            # key on the reader): every run of a long-lived process — and
+            # the warm rounds of a bench — revisits the same pages even
+            # though each run opens a fresh BamReader.
+            gen = getattr(_REUSE_TL, "gen", 0)
+            _REUSE_TL.gen = gen ^ 1
+            res = native.bgzf_inflate_index(
+                raw[b0:slice_end], arena=f"bam_plain_{gen}")
+            if res is None:
+                return None
+            plain, offs, isize = res
+            return plain, offs.astype(_np.int64) + b0, isize
+
+        def inflate(lo, hi):
+            res = native.bgzf_inflate_index(raw[lo:hi])
+            if res is None:
+                return None
+            plain, offs, isize = res
+            return plain, offs.astype(_np.int64) + lo, isize
+
+        with self._span_lock:
+            cache = self._span_cache
+        if cache is not None:
+            c0, c1, c_plain, c_offs, c_isize = cache
+            if b0 >= c0 and slice_end <= c1:
+                # fully cached: slice by block index
+                k0 = int(_np.searchsorted(c_offs, b0))
+                if k0 < len(c_offs) and c_offs[k0] == b0:
+                    k1 = int(_np.searchsorted(c_offs, slice_end))
+                    p_lo = int(c_isize[:k0].sum())
+                    p_hi = int(c_isize[:k1].sum())
+                    return (c_plain[p_lo:p_hi], c_offs[k0:k1],
+                            c_isize[k0:k1])
+            if c0 <= b0 < c1 and slice_end > c1 \
+                    and (c1 - b0) * 2 >= slice_end - b0:
+                # overlap: inflate only the tail beyond the cache. Only
+                # worth it when the cache covers >=half the request — the
+                # merge memcpys the retained prefix into a fresh buffer,
+                # so taking it for a boundary-block sliver (sequential
+                # chrom-scan tiles) would copy ~the whole span per tile.
+                k0 = int(_np.searchsorted(c_offs, b0))
+                if k0 < len(c_offs) and c_offs[k0] == b0:
+                    tail = inflate(c1, slice_end)
+                    if tail is None:
+                        return None
+                    p_lo = int(c_isize[:k0].sum())
+                    plain = _np.concatenate([c_plain[p_lo:], tail[0]])
+                    offs = _np.concatenate([c_offs[k0:], tail[1]])
+                    isize = _np.concatenate([c_isize[k0:], tail[2]])
+                    with self._span_lock:
+                        self._span_cache = (b0, slice_end, plain, offs, isize)
+                    return plain, offs, isize
+        res = inflate(b0, slice_end)
+        if res is None:
+            return None
+        with self._span_lock:
+            self._span_cache = (b0, slice_end) + res
+        return res
+
+    def plain_span(self, v_start: int, v_stop: int):
+        """Decompress the block span covering virtual offsets [v_start,
+        v_stop) and return (plain bytes, start offset, stop offset) — the
+        native window loader's input. None when the native lib is absent."""
+        try:
+            from . import native
+        except ImportError:
+            return None
+        if not native.native_available():
+            return None
+        from .bgzf import _parse_block_header
+        raw = self._bgzf._raw
+        b0 = v_start >> 16
+        b1 = v_stop >> 16
+        w1 = v_stop & 0xFFFF
+        if w1 > 0 and b1 < len(raw):
+            _, bsize = _parse_block_header(raw, b1)
+            slice_end = b1 + bsize
+        else:
+            slice_end = min(b1, len(raw))
+        res = self._inflate_range(b0, slice_end)
+        if res is None:
+            return None
+        plain, offs, isize = res
+        start = v_start & 0xFFFF
+        if w1 > 0 and b1 < len(raw):
+            stop = int(isize[:-1].sum()) + w1
+        else:
+            stop = len(plain)
+        return plain, start, min(stop, len(plain))
+
+    # feature flag for ChromReadSource: fetch_window_columnar accepts
+    # reuse_buffer= (the CRAM reader's does not)
+    fetch_reuse = True
+
+    def fetch_window_columnar(self, chrom: str, beg: int, end: int,
+                              min_mapq: int, readlen_threshold: int,
+                              de_max: float, lo: int, hi: int,
+                              reuse_buffer: bool = False):
+        """Native one-call region fetch + filter + meth decode (see
+        io/native bam_window_load). Returns (columns dict, plain buffer) or
+        (None, None) when the fast path is unavailable (no native lib, no
+        index, unknown chromosome).
+
+        reuse_buffer: decompress into the thread-local double-buffered
+        arena (returned buffer valid until the next-but-one reuse call on
+        this thread) instead of a fresh allocation + the rolling span
+        cache — the chrom-source segment-scan contract."""
+        tid = self.ref_id(chrom)
+        if tid < 0:
+            return {"n": 0, "has_implicit": False, "qnames": []}, b""
+        idx = self._load_index()
+        if idx is None:
+            return None, None
+        try:
+            from . import native
+        except ImportError:
+            return None, None
+        if not native.native_available():
+            return None, None
+        chunks = idx.chunks_for_region(tid, beg, end)
+        import numpy as np
+        if not chunks:
+            buf = np.empty(0, dtype=np.uint8)
+            cols = native.bam_window_load(buf, [], tid, beg, end, min_mapq,
+                                          readlen_threshold, de_max, lo, hi)
+            if cols is not None:
+                cols["voff"] = np.zeros(0, dtype=np.int64)
+            return (cols, buf) if cols is not None else (None, None)
+        # inflate the UNION of the chunks' block ranges ONCE (a window's
+        # chunks are genomically adjacent, so the union is barely larger
+        # than their sum) and index each chunk into the single plain buffer
+        # — no per-chunk inflation, no multi-MB np.concatenate per window
+        from .bgzf import _parse_block_header
+        raw = self._bgzf._raw
+        b_lo = min(cb >> 16 for cb, _ in chunks)
+        s_end = 0
+        for _, ce in chunks:
+            b1 = ce >> 16
+            w1 = ce & 0xFFFF
+            if w1 > 0 and b1 < len(raw):
+                _, bsize = _parse_block_header(raw, b1)
+                se = b1 + bsize
+            else:
+                se = min(b1, len(raw))
+            s_end = max(s_end, se)
+        res = self._inflate_range(b_lo, s_end, reuse=reuse_buffer)
+        if res is None:
+            return None, None
+        plain, offs, isize = res
+        poff = np.concatenate([np.zeros(1, dtype=np.int64),
+                               np.cumsum(isize)])
+
+        def p_of(block_off: int):
+            if block_off >= s_end:
+                return int(poff[-1])
+            k = int(np.searchsorted(offs, block_off))
+            if k >= len(offs) or offs[k] != block_off:
+                return None
+            return int(poff[k])
+
+        ranges = []
+        for cb, ce in chunks:
+            s0 = p_of(cb >> 16)
+            b1 = ce >> 16
+            w1 = ce & 0xFFFF
+            if w1 > 0 and b1 < len(raw):
+                e0 = p_of(b1)
+                e0 = None if e0 is None else e0 + w1
+            else:
+                e0 = p_of(min(b1, s_end))
+            if s0 is None or e0 is None:
+                return None, None
+            ranges.append((s0 + (cb & 0xFFFF), min(e0, len(plain))))
+        cols = native.bam_window_load(plain, ranges, tid, beg, end, min_mapq,
+                                      readlen_threshold, de_max, lo, hi)
+        if cols is None:
+            return None, None
+        if cols["n"]:
+            # absolute BAM virtual offsets: a STABLE per-record identity
+            # across different fetches (rec_off is relative to THIS plain
+            # buffer, so two fetches assign the same record different
+            # values and different records coincidentally equal ones —
+            # ChromReadSource's cross-segment dedup needs the absolute id)
+            ro = np.asarray(cols["rec_off"], dtype=np.int64)
+            k = np.searchsorted(poff, ro, side="right") - 1
+            cols["voff"] = (offs[k].astype(np.int64) << 16) \
+                | (ro - poff[k])
+        else:
+            cols["voff"] = np.zeros(0, dtype=np.int64)
+        return cols, plain
+
+    def fetch(self, chrom: str, beg: int, end: int) -> Iterator[BamRecord]:
+        """Records overlapping 0-based half-open [beg, end) on `chrom`."""
+        tid = self.ref_id(chrom)
+        if tid < 0:
+            return
+        idx = self._load_index()
+        if idx is None:
+            # no index: linear scan
+            for rec in self.fetch_all():
+                if rec.refID == tid and rec.pos < end and bam_endpos(rec) > beg:
+                    yield rec
+            return
+        for cb, ce in idx.chunks_for_region(tid, beg, end):
+            for rec in self._iter_from(cb, ce):
+                if rec.refID != tid:
+                    if rec.refID > tid:
+                        break
+                    continue
+                if rec.pos >= end:
+                    break
+                if bam_endpos(rec) > beg:
+                    yield rec
+
+    def fetch_region_1based(self, chrom: str, start1: int, end1: int) -> Iterator[BamRecord]:
+        """htslib-style 1-based inclusive region 'chrom:start1-end1'."""
+        return self.fetch(chrom, max(0, start1 - 1), end1)

@@ -36,11 +36,19 @@ MAX_NC_CAP = 1024  # the kernel keeps 5 words per candidate slot in shared memor
 
 
 def loop_plain(ids, has_mmr, hp_init, seed_ok, n_reads, n_sites, q_break,
-               min0, max0, cov, n_cand, max_iters, D: int, nc_cap: int):
+               min0, max0, cov, n_cand, max_iters, D: int, nc_cap: int,
+               work: dict | None = None):
     """Plain PyTorch greedy loop (see the module docstring); runs on the
     device its tensors are on. Each iteration works on the lanes still
     active and writes only theirs back, so a lane that has converged keeps
-    its state while the others iterate."""
+    its state while the others iterate.
+
+    `work`, if given, is filled with what the loop kernel must do on these
+    inputs: "slot_sites", the valid candidate slots scored times the sites
+    of their lane's range [lo, hi), summed over lanes and iterations; and
+    "id_cells", the ids cells those slots and the commits read, each cell
+    once (per read row, the hull of its ranges, or its whole n_sites once
+    committed)."""
     G, R, S = ids.shape
     dev = ids.device
     i32, i64, f32 = torch.int32, torch.int64, torch.float32
@@ -53,6 +61,10 @@ def loop_plain(ids, has_mmr, hp_init, seed_ok, n_reads, n_sites, q_break,
     slots = torch.arange(nc_cap, device=dev, dtype=i64)[None, :]
     site = torch.arange(S, device=dev, dtype=i32)[None, :]
     n_slots = torch.clamp(n_cand.to(i64), max=nc_cap)
+    if work is not None:
+        work["slot_sites"] = 0
+        row_lo = torch.full((G * R,), S, dtype=i64, device=dev)
+        row_hi = torch.zeros(G * R, dtype=i64, device=dev)
     while True:
         active = (q_last < q_break) & (failed <= 10) & (it < max_iters)
         L = torch.nonzero(active).squeeze(1)         # the active lanes
@@ -111,12 +123,29 @@ def loop_plain(ids, has_mmr, hp_init, seed_ok, n_reads, n_sites, q_break,
         cnt[L] = c
         h[ar[do_commit], rid[do_commit]] = t[do_commit]
         hp[L] = h
+        if work is not None:  # the kernel's lo, hi (loop_kernel.cu)
+            lo = min_i.clamp(min=0).to(i64)
+            hi = max_i.clamp(max=S).to(i64)
+            span = (hi - lo).clamp(min=0)
+            work["slot_sites"] += int((valid.sum(dim=1) * span).sum())
+            flat = L[:, None] * R + crow
+            m = valid & (span > 0)[:, None]
+            row_lo.scatter_reduce_(0, flat[m], lo[:, None].expand_as(flat)[m],
+                                   "amin")
+            row_hi.scatter_reduce_(0, flat[m], hi[:, None].expand_as(flat)[m],
+                                   "amax")
+            won = L[do_commit] * R + rid[do_commit]
+            row_lo[won] = 0
+            row_hi[won] = torch.maximum(row_hi[won],
+                                        n_sites[L[do_commit]].to(i64))
 
         # --- failure bookkeeping (blockjoin.c:4046-4070) ---
         failed[L] = torch.where(do_commit, 0, failed[L] + 1)
         q_last[L] = torch.where(do_commit, q_last[L], q_last[L] + n_cand[L])
         ncom[L] += do_commit.to(i32)
         it[L] += 1
+    if work is not None:
+        work["id_cells"] = int((row_hi - row_lo).clamp(min=0).sum())
     return hp, _stats(it, q_last, failed, ncom)
 
 

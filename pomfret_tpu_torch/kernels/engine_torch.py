@@ -20,11 +20,11 @@ from typing import Dict, Optional
 
 import numpy as np
 
-from pomfret_tpu.core.engine_host import evaluate_separation
-from pomfret_tpu.core.methmer import (Methmers, get_methmer_sites_and_ranges,
-                                      store_mmr_of_reads, wipe_mmr_of_reads)
-from pomfret_tpu.core.readset import (READBACK, MmrConfig, ReadSet,
-                                      load_reads_given_interval)
+from ..core.engine_host import evaluate_separation
+from ..core.methmer import (Methmers, get_methmer_sites_and_ranges,
+                            store_mmr_of_reads, wipe_mmr_of_reads)
+from ..core.readset import (READBACK, MmrConfig, ReadSet,
+                            load_reads_given_interval)
 
 INVALID_ID = -1
 
@@ -180,7 +180,7 @@ def build_gap_device_data(rs: ReadSet, ms: Methmers, direction: int,
         lens = mmr_arrays["n"][sel].astype(np.int64)
         offs = mmr_arrays["off"][sel].astype(np.int64)
         starts = mmr_arrays["start_i"][sel].astype(np.int64)
-        from pomfret_tpu.io import native as _native
+        from ..io import native as _native
         res = None
         if want_runs:
             cb = 128
@@ -307,7 +307,7 @@ def pack_group(loaded, cfg: MmrConfig, n_cand: int,
     (lane_indices, GapBatch), one entry for a layout-homogeneous group and
     two when the group mixes runs-eligible and dense-only lanes; errs is
     the set of (gap_index_in_loaded, direction) whose permute failed."""
-    from pomfret_tpu.core.engine_host import make_permutation_seeds
+    from ..core.engine_host import make_permutation_seeds
     from ..parallel.batch import pack_gap_batch
 
     if n_permutations > 1:
@@ -319,7 +319,7 @@ def pack_group(loaded, cfg: MmrConfig, n_cand: int,
     errs = set()
     # every (gap, direction) methmer extraction of the group in ONE native
     # call (mmr_extract_multi); the per-lane path runs when it is absent
-    from pomfret_tpu.io import native as _native
+    from ..io import native as _native
     multi = None
     if _native.native_available():
         tasks = []
@@ -370,7 +370,7 @@ def pack_group(loaded, cfg: MmrConfig, n_cand: int,
             if multi is not None:
                 res = multi[k]
             else:
-                from pomfret_tpu.core.methmer import extract_mmr_arrays
+                from ..core.methmer import extract_mmr_arrays
                 res = extract_mmr_arrays(rs, ms)
             if res is not None:
                 dd = build_gap_device_data(rs, ms, direction, pad_r, pad_s,
@@ -436,7 +436,7 @@ def _pick_load_threads(bam) -> int:
     bam_window_load call's own workers. POMFRET_LOAD_THREADS overrides."""
     if getattr(bam, "fetch_window_columnar", None) is None:
         return 1
-    from pomfret_tpu.io import native as _native
+    from ..io import native as _native
     if not _native.native_available():
         return 1
     return int(os.environ.get(
@@ -457,7 +457,7 @@ def run_jobs_batched(st, bam, jobs, group: int = 0, n_permutations: int = 1,
     boundaries."""
     import time as _time
     from ..parallel.batch import DISPATCH_STATS, run_gap_batch_group_async
-    from pomfret_tpu.utils.stats import add_stage, stage
+    from ..utils.stats import add_stage, stage
     group = group or max(1, int(os.environ.get("POMFRET_GAP_GROUP", "128"))
                          // max(1, n_permutations))
     n_load_threads = _pick_load_threads(bam)
@@ -498,7 +498,7 @@ def run_jobs_batched(st, bam, jobs, group: int = 0, n_permutations: int = 1,
                 regions.append([lo, hi])
         if sum(hi - lo for lo, hi in regions) >= 0.98 * ref_len:
             regions = None  # effectively the whole chromosome
-        from pomfret_tpu.core.readset import ChromReadSource
+        from ..core.readset import ChromReadSource
         src = ChromReadSource(bam, job["ref_name"], job["cfg"],
                               regions=regions)
         src_state["src"] = src if src.ok else None
@@ -605,7 +605,7 @@ def run_jobs_batched(st, bam, jobs, group: int = 0, n_permutations: int = 1,
             continue
         rngs = None
         if n_permutations > 1:
-            from pomfret_tpu.core.engine_host import Drand48
+            from ..core.engine_host import Drand48
             rngs = [Drand48.from_srand48(job["perm_key_base"] + i)
                     for i, *_ in loaded]
         with stage("pack"):
@@ -637,8 +637,8 @@ def _drain_group(entry, decisions, tag_maps, n_permutations: int = 1) -> None:
     per (gap, direction) evaluate each permutation lane's separation, vote,
     then apply the fwd/bwd agreement gate (blockjoin.c:4288-4320)."""
     import time as _time
-    from pomfret_tpu.core.engine_host import vote_permutations
-    from pomfret_tpu.utils.stats import add_stage, stage
+    from ..core.engine_host import vote_permutations
+    from ..utils.stats import add_stage, stage
     from ..parallel.batch import DISPATCH_STATS
 
     loaded, datas, errs, fut = entry

@@ -186,7 +186,7 @@ def _fused_gen() -> str:
     if gen:
         if gen in ("1", "2", "3"):
             return gen
-        from pomfret_tpu.utils.log import log_warn
+        from ..utils.log import log_warn
         log_warn("fused_gen",
                  f"POMFRET_FUSED_GEN={gen!r} is not one of 1|2|3; "
                  "using the default engine (3)")

@@ -1,12 +1,14 @@
-"""methphase and report pipelines on the port's device engine.
+"""The pipelines of the port: methphase, report, warmup, varhaptag and
+methstat.
 
-Counterpart of pomfret_tpu/pipeline.py: blockjoin_parallel (:358-498),
-_blockjoin_all_chroms_jax (here _blockjoin_all_chroms_torch, :302-355),
-main_blockjoin (:584-639) and main_methreport (:722-870), with the jax
-call sites replaced. Everything
-else — CliOpt, the host engine's per-chromosome path, coverage estimation,
-the writers — is imported from pomfret_tpu.pipeline, which imports no jax
-at module level.
+Counterpart of pomfret_tpu/pipeline.py. The host parts are copies of it:
+CliOpt, the coverage estimate, the host oracle's per-gap and
+per-chromosome paths (haplotag_region_given_bam, _blockjoin_one_chrom),
+_derive_chrom_params, main_varhaptag and main_methstat. The device parts
+drive the port's engine (kernels/engine_torch.run_jobs_batched) where the
+JAX package drives engine_jax: _blockjoin_all_chroms_torch,
+blockjoin_parallel, main_blockjoin (with --profile on torch.profiler),
+main_warmup and main_methreport. One process, one device.
 """
 from __future__ import annotations
 
@@ -14,32 +16,270 @@ import concurrent.futures as _fut
 import dataclasses
 import os
 import sys
-from typing import Dict, List, Tuple
+from dataclasses import dataclass
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
-from pomfret_tpu.core.intervals import (Storage, generate_new_phase_blocks,
-                                        lift_decisions,
-                                        make_decisions_flippings_onraw,
-                                        merge_close_intervals,
-                                        store_raw_intervals)
-from pomfret_tpu.core.readset import READBACK, MmrConfig
-from pomfret_tpu.core.recovery import recover_variant_phase_in_dropped_intervals
-from pomfret_tpu.core.varhaptag import pre_haplotagging_read_in_one_ref
-from pomfret_tpu.core.variants import HAPTAG_UNPHASED
-from pomfret_tpu.io.cram import open_alignment
-from pomfret_tpu.io.intervals_loader import (IS_GTF, IS_TSV, IS_VCF,
-                                             load_intervals_from_file)
-from pomfret_tpu.io.writers import (output_gtf, output_modify_bam,
-                                    output_modify_vcf, output_tsv)
-from pomfret_tpu.pipeline import (CliOpt, _blockjoin_one_chrom,
-                                  _derive_chrom_params,
-                                  estimate_read_coverage_cached,
-                                  haplotag_region_given_bam)
-from pomfret_tpu.utils.log import Get_T, log_err, log_info, log_warn
-from pomfret_tpu.utils.stats import stage
-
 from . import resolve_device
+from .core.engine_host import haplotag_region
+from .core.intervals import (Storage, generate_new_phase_blocks,
+                             lift_decisions, make_decisions_flippings_onraw,
+                             merge_close_intervals, store_raw_intervals)
+from .core.methmer import get_methmer_sites_and_ranges
+from .core.readset import READBACK, MmrConfig, load_reads_given_interval
+from .core.recovery import recover_variant_phase_in_dropped_intervals
+from .core.varhaptag import pre_haplotagging_read_in_one_ref
+from .core.variants import HAPTAG_UNPHASED
+from .io.bam import BamReader, bam_endpos
+from .io.cram import open_alignment
+from .io.intervals_loader import IS_GTF, IS_TSV, IS_VCF, load_intervals_from_file
+from .io.writers import (output_gtf, output_modify_bam, output_modify_vcf,
+                         output_tsv)
+from .utils.log import Get_T, log_err, log_info, log_warn
+from .utils.manifest import ManifestWriter, load_manifest
+from .utils.stats import stage
+
+
+@dataclass
+class CliOpt:
+    """cliopt_t (cli.h:19-48) with the defaults of init_cliopt_t (cli.c:48-74)."""
+    threads: int = 1
+    threads_bam: int = 1
+    lo: int = 100
+    hi: int = 156
+    fn_gtf: Optional[str] = None
+    fn_tsv: Optional[str] = None
+    fn_vcf: Optional[str] = None
+    fn_bam: Optional[str] = None
+    bam_needs_haplotagging: bool = False
+    write_bam_input_haplotagging: bool = False
+    output_prefix: str = "pomfret"
+    readlen_threshold: int = 15000
+    mapq: int = 10
+    k: int = 3
+    k_span: int = 5000
+    cov: int = -1
+    cov_for_selection: int = -1
+    n_candidates_per_iter: int = 15
+    do_output_bam: bool = False
+    do_output_tsv: bool = False
+    write_debug_files: bool = False
+    chunk_size: int = 50000
+    chunk_stride: int = 1000000
+    engine: str = "auto"  # auto|host|torch|cuda
+    resume: bool = False
+    profile: bool = False
+    # TPU-era extra: the reference compiles permutation voting
+    # (blockjoin.c:4088-4214) but hardcodes n_permutation=1 at the call site
+    # (blockjoin.c:4675); we expose it as --n-permutations.
+    n_permutations: int = 1
+
+
+def estimate_read_coverage_dirtyfast(bam: BamReader) -> List[int]:
+    """Whole-BAM binned coverage estimate (blockjoin.c:951-1040):
+    5 kb bins, filters mapq<5 / len<15000 / de>0.1, integer mean per chrom."""
+    T = Get_T()
+    mod = 5000
+    log_info("estimate_read_coverage_dirtyfast", "estimate read depths...")
+    covs = [0] * len(bam.ref_names)
+
+    cols, _ = bam.scan_columns()
+    if cols is not None:
+        # vectorized equivalent of the C binning loop: each read increments
+        # ceil((end-start)/mod) consecutive bins from start//mod; increments
+        # landing beyond target_len//mod bins are dropped (matching the
+        # reference's sum over exactly n bins)
+        ok = ((cols["flag"] & (4 | 256 | 2048)) == 0)
+        ok &= cols["mapq"] >= 5
+        ok &= cols["l_seq"] >= 15000
+        ok &= ~(cols["de"] > 0.1)
+        ok &= cols["refID"] >= 0
+        for tid in np.unique(cols["refID"][ok]):
+            n_bins = bam.ref_lens[tid] // mod
+            if n_bins <= 0:
+                continue
+            m = ok & (cols["refID"] == tid)
+            s0 = cols["pos"][m] // mod
+            kn = -(-(cols["endpos"][m] - cols["pos"][m]) // mod)
+            diff = np.zeros(n_bins + 1, dtype=np.int64)
+            np.add.at(diff, np.minimum(s0, n_bins), 1)
+            np.add.at(diff, np.minimum(s0 + kn, n_bins), -1)
+            bins_arr = np.cumsum(diff[:-1])
+            covs[int(tid)] = int(bins_arr.sum() // n_bins)
+        for name, c in zip(bam.ref_names, covs):
+            log_info("estimate_read_coverage_dirtyfast", f"{name} est. coverage is {c}")
+        log_info("estimate_read_coverage_dirtyfast", f"used {Get_T() - T:.1f}s")
+        return covs
+
+    bins: Dict[int, np.ndarray] = {}
+    for rec in bam.fetch_all():
+        tid = rec.refID
+        if tid < 0 or tid >= len(bam.ref_names):
+            continue
+        if rec.flag & (4 | 256 | 2048):
+            continue
+        if rec.mapq < 5:
+            continue
+        if rec.l_seq < 15000:
+            continue
+        de = rec.get_tag("de")
+        if de is not None and de > 0.1:
+            continue
+        if tid not in bins:
+            bins[tid] = np.zeros(bam.ref_lens[tid] // mod, dtype=np.int64)
+        b = bins[tid]
+        i = rec.pos
+        end = bam_endpos(rec)
+        while i < end:
+            idx = i // mod
+            if idx < len(b):
+                b[idx] += 1
+            i += mod
+    for tid, b in bins.items():
+        if len(b) > 0:
+            covs[tid] = int(b.sum() // len(b))
+    for name, c in zip(bam.ref_names, covs):
+        log_info("estimate_read_coverage_dirtyfast", f"{name} est. coverage is {c}")
+    log_info("estimate_read_coverage_dirtyfast", f"used {Get_T() - T:.1f}s")
+    return covs
+
+
+def estimate_read_coverage_cached(fn_bam: str, threads: int = 1) -> Dict[str, int]:
+    """Coverage estimates keyed on the BAM's identity (realpath, mtime,
+    size), cached across runs the way the CRAM spool is (io/cram.py
+    spool_path). The estimate is a pure function of the BAM (blockjoin.c:
+    951-1040 reads nothing else), so reusing it is output-identical while
+    skipping a whole-file scan that costs ~40% of a warm run's wall
+    (VERDICT r2 next-round item 1a). POMFRET_NO_COV_CACHE=1 disables;
+    the cache file lives under POMFRET_SPOOL_DIR (default tempdir).
+
+    Returns {ref_name: coverage}."""
+    import hashlib
+    import json as _json
+    import os
+    import tempfile
+
+    def scan() -> Dict[str, int]:
+        bam = open_alignment(fn_bam, threads=threads)
+        return dict(zip(bam.ref_names, estimate_read_coverage_dirtyfast(bam)))
+
+    if os.environ.get("POMFRET_NO_COV_CACHE"):
+        return scan()
+    st_ = os.stat(fn_bam)
+    key = (os.path.realpath(fn_bam), st_.st_mtime_ns, st_.st_size)
+    h = hashlib.sha1(repr(key).encode()).hexdigest()[:16]
+    d = os.environ.get("POMFRET_SPOOL_DIR") or tempfile.gettempdir()
+    path = os.path.join(d, f"pomfret_cov_{h}.json")
+    if os.path.exists(path):
+        try:
+            with open(path) as f:
+                data = _json.load(f)
+            log_info("estimate_read_coverage_cached",
+                     f"reusing cached coverage estimates ({path})")
+            return {n: int(c) for n, c in data["covs"].items()}
+        except (ValueError, KeyError, OSError):
+            pass  # corrupt/partial cache: rescan and rewrite
+    covs = scan()
+    tmp = path + f".tmp{os.getpid()}"
+    try:
+        with open(tmp, "w") as f:
+            _json.dump({"key": list(key), "covs": covs}, f)
+        os.replace(tmp, path)
+    except OSError:
+        pass  # unwritable cache dir: still return the fresh scan
+    return covs
+
+
+def haplotag_region_given_bam(st: Storage, bam: BamReader, chrom: str,
+                              ref_start: int, ref_end: int,
+                              config: MmrConfig, n_candidates_per_iter: int,
+                              n_permutations: int = 1,
+                              perm_key: Optional[int] = None):
+    """Load one gap window + run both directions (blockjoin.c:4217-4335).
+    Returns (decision, readset|None). perm_key seeds a per-gap srand48
+    stream for permutation voting so results are independent of which host
+    scores which gap (PARITY.md X7); None keeps the process-global stream."""
+    rs = load_reads_given_interval(
+        bam, chrom, ref_start, ref_end, READBACK, config,
+        st.qname2haptag_raw if st.stores_raw_tag else None)
+    ms_fwd = get_methmer_sites_and_ranges(rs, config, 0)
+    ms_bwd = get_methmer_sites_and_ranges(rs, config, 1)
+    if ms_fwd.n == 0 or ms_bwd.n == 0:
+        log_warn("haplotag_region_given_bam",
+                 f"{chrom}:{ref_start}-{ref_end} does not have methmer in both directions. Skipping.")
+        return -1, rs
+    from .core.engine_host import evaluate_ref_sanity
+    from .utils.log import get_verbose
+    if get_verbose():
+        rl, vl = evaluate_ref_sanity(rs, 0)
+        rr_, vr = evaluate_ref_sanity(rs, 1)
+        log_info("haplotag_region_given_bam",
+                 f"left ref ratio: {rl:.2f} (valid={vl}); right ref ratio: {rr_:.2f} (valid={vr})")
+    rng = None
+    if n_permutations > 1 and perm_key is not None:
+        from .core.engine_host import Drand48
+        rng = Drand48.from_srand48(perm_key)
+    decision = haplotag_region(rs, ms_fwd, ms_bwd, n_candidates_per_iter,
+                               config.cov_for_runtime, n_permutations, rng)
+    return decision, rs
+
+
+def _derive_chrom_params(config: MmrConfig, n_cand: int, coverage: int,
+                         ref_name: str) -> Tuple[MmrConfig, int]:
+    """Per-chromosome parameter derivation (blockjoin.c:4358-4392)."""
+    import dataclasses
+    cfg = dataclasses.replace(config)
+    if cfg.cov_for_selection <= 0:
+        cfg.cov_for_selection = coverage // 10 + 1
+        cfg.cov_for_runtime = cfg.cov_for_selection * 2
+        n_cand = coverage // 4 + 1
+    if cfg.cov_for_selection <= 0:
+        log_warn("blockjoin_one_chrom", f"had to clamp cov_for_selection (ref: {ref_name})")
+        cfg.cov_for_selection = 1
+    if n_cand <= 1:
+        log_warn("blockjoin_one_chrom", f"had to clamp n_candidates_per_iter (ref: {ref_name})")
+        n_cand = 2
+    return cfg, n_cand
+
+
+def _blockjoin_one_chrom(st: Storage, fn_bam: str, job_i: int,
+                         config: MmrConfig, n_cand_in: int, coverage: int,
+                         manifest=None, done=None,
+                         n_permutations: int = 1) -> Dict[str, int]:
+    """One chromosome's gap-joining jobs on the host oracle
+    (blockjoin_one_chrom_callback, blockjoin.c:4350-4426). Returns the
+    per-chromosome qname->haptag map. manifest/done implement
+    checkpoint-resume at gap granularity."""
+    rg = st.ranges[job_i]
+    ref_name = st.ref_names[job_i]
+    cfg, n_cand = _derive_chrom_params(config, n_cand_in, coverage, ref_name)
+    log_info("blockjoin_one_chrom",
+             f"ref {ref_name} using: cov_for_selection={cfg.cov_for_selection}, n_cand_per_iter={n_cand}")
+    bam = open_alignment(fn_bam)
+    qname2haptag: Dict[str, int] = {}
+    indices = []
+    for i in range(len(rg.starts)):
+        if done is not None and (ref_name, i) in done:
+            e = done[(ref_name, i)]
+            rg.decisions[i] = e["decision"]
+            if e["decision"] >= 0:
+                for qn, hp in e["tags"].items():
+                    qname2haptag.setdefault(qn, hp)
+            continue
+        indices.append(i)
+    for i in indices:
+        decision, rs = haplotag_region_given_bam(
+            st, bam, ref_name, rg.starts[i], rg.ends[i], cfg, n_cand,
+            n_permutations, perm_key=job_i * 1_000_003 + i)
+        rg.decisions[i] = decision
+        tags = {r.qname: r.hp for r in rs.reads} if (decision >= 0 and rs is not None) else None
+        if manifest is not None:
+            manifest.record(ref_name, i, rg.starts[i], rg.ends[i], decision, tags)
+        if tags:
+            for qn, hp in tags.items():
+                qname2haptag.setdefault(qn, hp)
+    return qname2haptag
 
 
 def _single_process():
@@ -174,7 +414,6 @@ def blockjoin_parallel(opt: CliOpt, config: MmrConfig,
                  f"{engine} engine drives a single device; clamping worker threads to 1")
         opt = dataclasses.replace(opt, threads=1)
 
-    from pomfret_tpu.utils.manifest import ManifestWriter, load_manifest
     manifest_path = opt.output_prefix + ".mp.manifest.jsonl"
     done = load_manifest(manifest_path) if opt.resume else None
     manifest = ManifestWriter(manifest_path, append=bool(opt.resume))
@@ -190,15 +429,13 @@ def blockjoin_parallel(opt: CliOpt, config: MmrConfig,
             maps = list(ex.map(
                 lambda i: _blockjoin_one_chrom(st, opt.fn_bam, i, config,
                                                opt.n_candidates_per_iter,
-                                               ref_covs[i], "host", None,
-                                               manifest, done,
+                                               ref_covs[i], manifest, done,
                                                opt.n_permutations),
                 range(n_jobs)))
     else:
         maps = [_blockjoin_one_chrom(st, opt.fn_bam, i, config,
                                      opt.n_candidates_per_iter, ref_covs[i],
-                                     "host", None, manifest, done,
-                                     opt.n_permutations)
+                                     manifest, done, opt.n_permutations)
                 for i in range(n_jobs)]
     manifest.close()
     local_tags: Dict[str, int] = {}
@@ -210,17 +447,115 @@ def blockjoin_parallel(opt: CliOpt, config: MmrConfig,
     return st
 
 
-def main_blockjoin(opt: CliOpt, device=None) -> int:
-    """methphase (main_blockjoin, blockjoin.c:4643-4735)."""
-    if opt.profile:
-        raise NotImplementedError("--profile is not yet ported to "
-                                  "pomfret_tpu_torch")
+def main_warmup(opt: CliOpt, device=None) -> int:
+    """Build what the first methphase/report run on this dataset would
+    build, and run the device engine once on every packed shape it gives
+    (main_warmup, pomfret_tpu/pipeline.py:501-581). The CUDA kernel
+    library (--engine cuda) and the native IO library are compiled into
+    their hashed build directories, where later runs find them. Every gap
+    group of every chromosome is loaded and packed through pack_group, as
+    run_jobs_batched packs it, and the engine runs at max_iters=0 once per
+    distinct (G, R, S, layout, D, nc_cap): the kernel launches and leaves
+    before iteration 1. --engine host has nothing to warm."""
+    engine, dev = resolve_device(opt.engine, device)
+    if engine == "host":
+        log_info("main_warmup", "host engine selected; nothing to warm")
+        return 0
+    from .io import native
+    from .kernels import _build
+    from .kernels.engine_torch import pack_group
+    from .parallel.batch import run_gap_batch
+    T = Get_T()
+    if engine == "cuda":
+        _build.get_lib()
+    if not native.native_available():
+        log_warn("main_warmup", "the native IO library did not build or "
+                 "load; host IO runs on its Python fallbacks")
+    log_info("main_warmup", f"{engine} engine: libraries built and loaded "
+             f"in {Get_T() - T:.1f}s")
     config = MmrConfig(
         k=opt.k, k_span=opt.k_span, lo=opt.lo, hi=opt.hi,
         cov_known=opt.cov, cov_for_selection=opt.cov_for_selection,
         cov_for_runtime=opt.cov_for_selection * 2,
         readlen_threshold=opt.readlen_threshold, min_mapq=opt.mapq)
-    st = blockjoin_parallel(opt, config, device)
+    st = Storage()
+    fn_interval = opt.fn_tsv or opt.fn_gtf or opt.fn_vcf
+    fmt = IS_TSV if opt.fn_tsv else (IS_GTF if opt.fn_gtf else IS_VCF)
+    load_intervals_from_file(fn_interval, fmt, st)
+    for rg in st.ranges:
+        store_raw_intervals(rg)
+        merge_close_intervals(rg, READBACK)
+    bam = open_alignment(opt.fn_bam, threads=opt.threads_bam)
+    if config.cov_for_selection <= 0:
+        name2cov = estimate_read_coverage_cached(opt.fn_bam, opt.threads_bam)
+        ref_covs = [name2cov.get(n, 0) for n in st.ref_names]
+    else:
+        ref_covs = [config.cov_known] * len(st.ref_names)
+
+    group = int(os.environ.get("POMFRET_GAP_GROUP", "128"))
+    seen = set()
+    T = Get_T()
+    for i_ref, rg in enumerate(st.ranges):
+        cfg, n_cand = _derive_chrom_params(config, opt.n_candidates_per_iter,
+                                           ref_covs[i_ref], st.ref_names[i_ref])
+        for c0 in range(0, len(rg.starts), group):
+            loaded = []
+            for i in range(c0, min(c0 + group, len(rg.starts))):
+                rs = load_reads_given_interval(bam, st.ref_names[i_ref],
+                                               rg.starts[i], rg.ends[i],
+                                               READBACK, cfg)
+                ms_f = get_methmer_sites_and_ranges(rs, cfg, 0)
+                ms_b = get_methmer_sites_and_ranges(rs, cfg, 1)
+                if rs.n == 0 or ms_f.n == 0 or ms_b.n == 0:
+                    continue
+                loaded.append((i, rs, ms_f, ms_b))
+            if not loaded:
+                continue
+            _datas, parts, _errs = pack_group(loaded, cfg, n_cand)
+            for _idx, batch in parts:
+                key = (batch.shape3, batch.blk is None, batch.D,
+                       batch.nc_cap)
+                if key in seen:
+                    continue
+                seen.add(key)
+                run_gap_batch(batch, max_iters=0, engine=engine, device=dev)
+                G, R, S = batch.shape3
+                log_info("main_warmup",
+                         f"{st.ref_names[i_ref]}: ran the {engine} engine on "
+                         f"G={G} R={R} S={S} D={batch.D} nc={batch.nc_cap} "
+                         f"({Get_T() - T:.1f}s cumulative)")
+    log_info("main_warmup", f"{len(seen)} engine shape(s) run")
+    return 0
+
+
+def main_blockjoin(opt: CliOpt, device=None) -> int:
+    """methphase (main_blockjoin, blockjoin.c:4643-4735). With --profile,
+    torch.profiler traces the gap joining (CPU activity, and CUDA activity
+    on the cuda engine) into <prefix>.profile/trace.json; a profiler that
+    fails to start raises."""
+    config = MmrConfig(
+        k=opt.k, k_span=opt.k_span, lo=opt.lo, hi=opt.hi,
+        cov_known=opt.cov, cov_for_selection=opt.cov_for_selection,
+        cov_for_runtime=opt.cov_for_selection * 2,
+        readlen_threshold=opt.readlen_threshold, min_mapq=opt.mapq)
+    if opt.profile:
+        import torch
+        from torch.profiler import ProfilerActivity, profile
+        engine, dev = resolve_device(opt.engine, device)
+        opt = dataclasses.replace(opt, engine=engine)
+        acts = [ProfilerActivity.CPU]
+        if engine == "cuda":
+            acts.append(ProfilerActivity.CUDA)
+        with profile(activities=acts) as prof:
+            st = blockjoin_parallel(opt, config, device)
+            if engine == "cuda":
+                torch.cuda.synchronize(dev)
+        out_dir = opt.output_prefix + ".profile"
+        os.makedirs(out_dir, exist_ok=True)
+        prof.export_chrome_trace(os.path.join(out_dir, "trace.json"))
+        log_info("main_blockjoin", f"profiler trace -> {out_dir}/trace.json")
+    else:
+        st = blockjoin_parallel(opt, config, device)
     lift_decisions(st)
     make_decisions_flippings_onraw(st)
     generate_new_phase_blocks(st, use_raw=True)
@@ -248,6 +583,86 @@ def main_blockjoin(opt: CliOpt, device=None) -> int:
             output_modify_bam(opt.fn_bam, st,
                               opt.output_prefix + ".mp.bam", opt.threads_bam)
         log_info("main_blockjoin", "bam + index written.")
+    return 0
+
+
+def main_varhaptag(fn_vcf: str, fn_bam: str, fn_out: str, n_thread: int,
+                   verbose: bool, write_bam: bool) -> int:
+    # blockjoin.c:4737-4836
+    st = Storage()
+    bam = open_alignment(fn_bam, threads=max(1, n_thread // 2))
+
+    def cb(chrom, variants):
+        pre_haplotagging_read_in_one_ref(bam, chrom, variants,
+                                         st.qname2haptag_raw)
+
+    load_intervals_from_file(fn_vcf, IS_VCF, st, load_vcf_variants_too=True,
+                             haptag_callback=cb)
+
+    from .io.bam_writer import BamWriter
+    from .io.writers import stream_retag_native
+
+    def build_maps():
+        from .io import native as _nat
+        return (_nat.qmap_arrays(st.qname2haptag_raw),
+                _nat.qmap_arrays({}), False)
+
+    with open(fn_out + ".varhaptag.tsv", "w") as tsv:
+        tsv.write("#qname\thaptag_input\thaptag_new\n")
+        # native whole-file pass (BAM input): bulk retag + TSV from the
+        # per-record metadata; Python loop below is the fallback/oracle
+        if stream_retag_native(fn_bam, fn_out, build_maps, mode=1,
+                               threads=max(1, n_thread // 2), tsv=tsv,
+                               write_bam=write_bam):
+            return 0
+        w = None
+        if write_bam:
+            w = BamWriter(fn_out, bam.ref_names, bam.ref_lens,
+                          header_text=bam.header_text,
+                          threads=max(1, n_thread // 2), keep_index_info=True)
+        for rec in bam.fetch_all():
+            hp = st.qname2haptag_raw.get(rec.qname, HAPTAG_UNPHASED)
+            t = rec.get_tag("HP")
+            hp_raw = HAPTAG_UNPHASED if t is None or t == 0 else t - 1
+            if w is not None:
+                rec.set_int_tag("HP", hp + 1)
+                w.write(rec)
+            tsv.write(f"{rec.qname}\t{hp_raw + 1}\t{hp + 1}\n")
+        if w is not None:
+            w.close()
+            w.build_index(fn_out + ".bai", n_ref=len(bam.ref_names))
+    return 0
+
+
+def main_methstat(opt: CliOpt) -> int:
+    """Dump usable methmer site positions per gap interval
+    (main_methstat, blockjoin.c:4838-4899 — present in the reference but
+    unreachable from its CLI; wired up here for completeness)."""
+    st = Storage()
+    fn_interval = opt.fn_tsv or opt.fn_gtf or opt.fn_vcf
+    fmt = IS_TSV if opt.fn_tsv else (IS_GTF if opt.fn_gtf else IS_VCF)
+    load_intervals_from_file(fn_interval, fmt, st)
+    bam = open_alignment(opt.fn_bam, threads=opt.threads)
+    if opt.cov_for_selection <= 0:
+        raw = estimate_read_coverage_cached(opt.fn_bam, opt.threads)
+        name2cov = {n: c // 10 + 1 for n, c in raw.items()}
+    else:
+        name2cov = {n: opt.cov_for_selection for n in bam.ref_names}
+    config = MmrConfig(lo=opt.lo, hi=opt.hi,
+                       readlen_threshold=opt.readlen_threshold,
+                       min_mapq=0, k=1, k_span=5000, cov_for_runtime=1)
+    import dataclasses
+    with open(opt.output_prefix + ".methstat.tsv", "w") as f:
+        for i_ref, rg in enumerate(st.ranges):
+            chrom = st.ref_names[i_ref]
+            cfg = dataclasses.replace(config)
+            cfg.cov_for_selection = name2cov.get(chrom, 1)
+            for s, e in zip(rg.starts, rg.ends):
+                rs = load_reads_given_interval(bam, chrom, s, e, 0, cfg)
+                ms = get_methmer_sites_and_ranges(rs, cfg, 0)
+                for pos in ms.sites_real_poss:
+                    f.write(f"{chrom}\t{int(pos)}\n")
+    log_info("main_methstat", "wrote methstat tsv")
     return 0
 
 
@@ -333,7 +748,7 @@ def main_methreport(opt: CliOpt, device=None) -> int:
             for k, wi in enumerate(mine):
                 decision, _ = haplotag_region_given_bam(
                     st, bam, st.ref_names[i_ref], rg.starts[wi], rg.ends[wi],
-                    cfg, n_cand, "host", opt.n_permutations,
+                    cfg, n_cand, opt.n_permutations,
                     perm_key=i_ref * 1_000_003 + wi)
                 dec_vec[win_global[(i_ref, wi)]] = decision
                 if (k + 1) % 100 == 0:

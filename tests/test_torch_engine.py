@@ -193,3 +193,42 @@ def test_kernel_build_needs_nvcc(monkeypatch, tmp_path):
         "libpomfret_kernels_")
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.build()
+
+
+@pytest.mark.parametrize("trial", range(4))
+def test_loop_plain_work_count(trial):
+    """loop_plain's `work` tally (the loop kernel's bound in chip_smoke.py)
+    leaves the loop's outputs as they are, stays inside the counts of a
+    full range every iteration, and after one iteration is each lane's
+    valid slots times the sites of its seeded range."""
+    from pomfret_tpu_torch.kernels.engine_fused import (_range_from_seed_b,
+                                                        _seed_count_table_b)
+    args, D, nc_cap = fuzz_args(trial)
+    t = [torch.from_numpy(np.ascontiguousarray(a)) for a in args]
+    ids, has_mmr, hp_init, seed_ok, n_reads, n_sites = t[:6]
+    q_break, cov, min0, max0, n_cand = t[6], t[9], t[7], t[8], t[10]
+    work = {}
+    hp, st = tf3.loop_plain(*t, D=D, nc_cap=nc_cap, work=work)
+    hp0, st0 = tf3.loop_plain(*t, D=D, nc_cap=nc_cap)
+    assert torch.equal(hp, hp0) and torch.equal(st, st0)
+    n_slots = n_cand.long().clamp(max=nc_cap)
+    assert 0 < work["slot_sites"] <= int(
+        (st[:, 0].long() * n_slots * n_sites.long()).sum())
+    assert 0 < work["id_cells"] <= int((n_reads.long() * n_sites.long()).sum())
+
+    one = t[:11] + [torch.clamp(t[11], max=1)]
+    work1 = {}
+    hp1, st1 = tf3.loop_plain(*one, D=D, nc_cap=nc_cap, work=work1)
+    cnt = _seed_count_table_b(ids, hp_init, seed_ok, has_mmr, D)
+    lo, hi = _range_from_seed_b(cnt.sum(dim=1), cov, min0, max0, n_sites)
+    span = (hi.clamp(max=ids.shape[2]).long() - lo.clamp(min=0).long()) \
+        .clamp(min=0)
+    rows = torch.arange(ids.shape[1])[None, :]
+    elig = ((hp_init != 0) & (hp_init != 1) & (rows < n_reads[:, None])).sum(1)
+    ran = (st1[:, 0] == 1).long()
+    n_valid = torch.minimum(elig, n_slots) * ran
+    won = (hp1 != hp_init).sum(dim=1)
+    assert work1["slot_sites"] == int((n_valid * span).sum())
+    assert work1["id_cells"] == int(
+        ((n_valid - won) * span + won * torch.maximum(
+            n_sites.long(), span)).sum())
