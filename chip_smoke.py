@@ -5,7 +5,7 @@
 
 Phases, each printing one line:
  1. card: the GPU's name and power limit (nvidia-smi);
- 2. build: nvcc builds the three kernels from pomfret_tpu_torch/kernels/csrc
+ 2. build: nvcc builds the seven kernels from pomfret_tpu_torch/kernels/csrc
     while g++ builds the port's native IO library (io/native); the script
     fails unless both load;
  3. kernel vs plain: run_batch_fused3 (the loop kernel) against loop_plain
@@ -21,6 +21,15 @@ Phases, each printing one line:
     loop kernel's and the plain loop's time, each step kernel's time
     against its plain version's, and the whole-loop times of gens 1, 2, 3
     at the bench shape (CUDA events);
+ 3b. probes: the 45 entries of pomfret_tpu_torch.tools.probes (every
+    variant of tools/probe_*.py) on the four probe kernels, launches counted
+    from zero; each result equal to the probe's oracle, each kernel's
+    outputs equal to its plain version's on the same inputs (exact, the
+    ratio sums bit for bit, row_copy's staged buffer too); each entry timed
+    as the entry point calls it (CUDA events: back to back,
+    and queued behind a spin kernel for the device time alone), and the
+    stile ratio sum's full-S and tiled-S times at (32,16,1536), range
+    [128,640);
  4a. warmup: `pomfret-tpu-torch warmup --engine cuda` on the 200-gap scale
     dataset of bench.py (generated once into .bench_data/ by the port's
     testing.py): one loop-kernel launch at max_iters=0 per packed shape;
@@ -52,7 +61,13 @@ Phases, each printing one line:
     event, and the outputs equal the run without --profile;
  6. report: `pomfret-tpu-torch report --engine cuda` under gens 3 and 2
     against `report --engine host` on the cis two-block scenario;
-    .report.tsv must be byte-identical.
+    .report.tsv must be byte-identical;
+ 7. run_gap: the single-gap engine (kernels.engine_torch.run_gap) with
+    engine "cuda" against engine "torch" on the CPU and the host oracle,
+    gap by gap on the parity scenarios (n_permutations 1, and 5 on each
+    chromosome's first gap): decisions and per-read tags equal, and the
+    loop kernel's launches, counted from zero, equal to the directions the
+    cuda runs dispatched (run_gap.dispatched).
 The script then checks that no jax, pomfret_tpu or pomfret_tpu.* module
 was loaded. Then a JSON line of the kernels (with each one's bound: the
 larger of its bytes over the HBM rate and its operations over the f32
@@ -270,6 +285,234 @@ def phase_kernel_vs_plain(dev):
                                   "score_commit_kernel": step.max_abs_err},
                 steps_checked={"score_kernel": score.calls,
                                "score_commit_kernel": step.calls})
+
+
+def queued_ms(fn, reps):
+    """Mean device milliseconds of fn() over reps runs queued behind a
+    spin kernel of ~25 ms, so the card runs them back to back while the
+    host enqueues (cuda_ms also counts the host's launch cost, which is
+    most of a small kernel's time). CUDA events."""
+    import torch
+    start, end = torch.cuda.Event(enable_timing=True), \
+        torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(50_000_000)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+# each probe kernel's TPU counterparts, the pallas_call sites it covers
+PROBE_SITES = {
+    "probe_row_copy": ["tools/probe_dma.py:54", "tools/probe_dma2.py:39",
+                       "tools/probe_dma2.py:67", "tools/probe_dma3.py:38",
+                       "tools/probe_dma4.py:36", "tools/probe_dma4.py:69",
+                       "tools/probe_dma5.py:67", "tools/probe_dma6.py:56",
+                       "tools/probe_v3_parts.py:106"],
+    "probe_lane_vec": ["tools/probe_v3_parts.py:35", "tools/probe_v3_parts.py:55",
+                       "tools/probe_v3_parts.py:75",
+                       "tools/probe_v3_parts.py:132"],
+    "probe_v3_loop": ["tools/probe_v3_feasibility.py:84"],
+    "probe_stile": ["tools/probe_stile.py:80", "tools/probe_stile2.py:82"]}
+# the entry each probe kernel is timed and bounded at in the kernels line
+# (one launch each; probe_stile2's full-S launch of its two)
+PROBE_AT = {"probe_row_copy": ("probe_dma2", "full3d"),
+            "probe_lane_vec": ("probe_v3_parts", "whileloop"),
+            "probe_v3_loop": ("probe_v3_feasibility", "main"),
+            "probe_stile": ("probe_stile2", "main")}
+
+
+def probe_bound(p, inputs):
+    """Bound of one probe entry's launch(es) on these inputs: each input
+    byte the function needs read once, each output byte written once; one
+    operation per element summed or compared, two per ratio (divide, add)
+    per iteration. K1: the rows copied, the row and slot of each lane, the
+    lane sums and the total (no probe returns the staged buffer, so the
+    timed call does not write it back)."""
+    import numpy as np
+    kw = p.kw
+    if p.kernel == "probe_row_copy":
+        src, rows = inputs["src"], inputs["rows"]
+        L, R, S = src.shape
+        W, NB = kw["W"], kw["NB"]
+        copied = int(((rows >= 0) & (rows <= R - W)).sum())
+        nbytes = copied * W * S * src.itemsize + 8 * L + 4 * L + 4
+        return bound(nbytes, L * (W if kw["sum_stage"] else NB) * S)
+    if p.kernel == "probe_lane_vec":
+        L, Rh = inputs["hp"].shape
+        return bound(L * Rh * 4 + L * 4, max(kw["n_iter"], 1) * L * Rh)
+    if p.kernel == "probe_v3_loop":
+        ids, hp = inputs["ids"], inputs["hp"]
+        L, R, S = ids.shape
+        q = np.arange(R)
+        rows = {(l, min(list(q[(hp[l] == 2) & (q >= 2 * it)]) + [R - 1]))
+                for it in range(kw["n_iter"]) for l in range(L)}
+        return bound(hp.nbytes + len(rows) * S * 4 + L * 4,
+                     kw["n_iter"] * (L * R + L * kw["NC"] * S))
+    cnt, cids, ranges = inputs["cnt"], inputs["cids"], inputs["ranges"]
+    B, D2, S = cnt.shape
+    NC = cids.shape[1]
+    span = int((ranges[:, 1] - ranges[:, 0]).clip(min=0).sum())
+    site = np.arange(S)
+    ok = (cids >= 0) & (cids < D2 // 2)
+    c0 = np.take_along_axis(cnt[:, 0::2], np.where(ok, cids, 0), axis=1)
+    keep = int((ok & (c0 > 0) & ((site >= ranges[:, :1]) &
+                                 (site < ranges[:, 1:]))[:, None, :]).sum())
+    nbytes = span * (NC + D2 // 2) * 4 + ranges.nbytes + B * NC * 4
+    return bound(nbytes, 2 * kw["n_iter"] * keep)
+
+
+def probe_times(pb, name):
+    """ms, plain_ms, bound_ms and bound_by of one launch of a probe kernel
+    at its PROBE_AT entry (probe_stile: the full-S launch)."""
+    e = pb["entries"][" ".join(PROBE_AT[name])]
+    out = {k: e[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")}
+    if name == "probe_stile":
+        st = pb["stile"][f"{PROBE_AT[name][0]} full"]
+        out.update(ms=st["us_per_call"] / 1e3,
+                   plain_ms=st["plain_us_per_call"] / 1e3)
+    return out
+
+
+def phase_probes(dev):
+    """The tools/ probes on the card: every registry entry through the
+    entry point's run_probe (launches counted from zero), each result
+    against the probe's oracle, then each kernel's raw outputs against its
+    plain version on the same inputs (exact; bit for bit for the ratio
+    sums; K1's staged buffer too), the times of every entry as the entry
+    point calls it, and the stile full-S/tiled-S times."""
+    import torch
+    from pomfret_tpu_torch.kernels import probes as kp
+    from pomfret_tpu_torch.tools import probes as tp
+
+    for fn in kp.PROBE_KERNELS.values():
+        fn.launches = 0
+    runs = {}
+    for key, p in tp.PROBES.items():
+        inputs, raw, _, ok, msg = tp.run_probe(p, dev)
+        check(ok, f"{p.stem} {p.variant}: {msg}")
+        runs[key] = (inputs, raw)
+    torch.cuda.synchronize()
+    launches = {name: fn.launches for name, fn in kp.PROBE_KERNELS.items()}
+    check(all(launches.values()), f"probe kernels not launched: {launches}")
+
+    max_err = {name: 0.0 for name in kp.PROBE_KERNELS}
+    entries = {}
+    for key, (inputs, _) in runs.items():
+        p = tp.PROBES[key]
+        t = tp.tensors(inputs, dev)
+        kernel, plain_fn = tp.compared(p)
+        for a, b in zip(p.call(kernel, t), p.call(plain_fn, t)):
+            check(a.dtype == b.dtype and a.shape == b.shape
+                  and torch.equal(a, b),
+                  f"{p.stem} {p.variant}: {p.kernel} != its plain version")
+            if a.numel():                # K1's buffer is empty at NB=0
+                err = float((a.double() - b.double()).abs().max())
+                max_err[p.kernel] = max(max_err[p.kernel], err)
+        heavy = p.kernel == "probe_stile"
+        fn, plain_fn = kp.PROBE_KERNELS[p.kernel], kp.PROBE_PLAIN[p.kernel]
+        entries[f"{p.stem} {p.variant}"] = dict(
+            kernel=p.kernel,
+            ms=cuda_ms(lambda: p.call(fn, t), 5 if heavy else 50),
+            device_ms=queued_ms(lambda: p.call(fn, t), 5 if heavy else 50),
+            plain_ms=cuda_ms(lambda: p.call(plain_fn, t), 2 if heavy else 10),
+            **probe_bound(p, inputs))
+
+    # tiled-S against full-S, each alone, at probe_stile's shape
+    stile = {}
+    for stem in ("probe_stile", "probe_stile2"):
+        p = tp.PROBES[(stem, "main")]
+        t = tp.tensors(p.make(), dev)
+        n_iter = p.kw["n_iter"]
+        for tiled in (False, True):
+            args = (t["cnt"], t["cids"], t["ranges"])
+
+            def fn():
+                return kp.stile(*args, tiled=tiled, n_iter=n_iter)
+            reps = 200 if n_iter == 1 else 5
+            ms, dms = cuda_ms(fn, reps), queued_ms(fn, reps)
+            stile[f"{stem} {'tiled' if tiled else 'full'}"] = dict(
+                n_iter=n_iter, us_per_call=ms * 1e3,
+                device_us_per_call=dms * 1e3,
+                device_us_per_iter=dms * 1e3 / n_iter,
+                plain_us_per_call=cuda_ms(
+                    lambda: kp.stile_plain(*args, tiled=tiled, n_iter=n_iter),
+                    20 if n_iter == 1 else 2) * 1e3)
+    return dict(launches=launches, max_abs_err=max_err, entries=entries,
+                stile=stile)
+
+
+def phase_run_gap(scenarios):
+    """run_gap(engine="cuda") against run_gap(engine="torch") on the CPU
+    and the host oracle, gap by gap over the parity scenarios: every gap
+    with one seed; the first gap of each chromosome with 5 permutations
+    (per-gap srand48 streams). Decisions and per-read tags equal; returns
+    the counts, the directions the cuda runs dispatched and the walls."""
+    from pomfret_tpu_torch.core.engine_host import Drand48, haplotag_region
+    from pomfret_tpu_torch.core.intervals import (Storage,
+                                                  merge_close_intervals,
+                                                  store_raw_intervals)
+    from pomfret_tpu_torch.core.methmer import get_methmer_sites_and_ranges
+    from pomfret_tpu_torch.core.readset import (READBACK, MmrConfig,
+                                                load_reads_given_interval)
+    from pomfret_tpu_torch.io.bam import BamReader
+    from pomfret_tpu_torch.io.intervals_loader import (
+        IS_VCF, load_intervals_from_file)
+    from pomfret_tpu_torch.kernels.engine_torch import run_gap
+    from pomfret_tpu_torch.pipeline import (_derive_chrom_params,
+                                            estimate_read_coverage_cached)
+
+    walls = {"host": 0.0, "torch_cpu": 0.0, "cuda": 0.0}
+    runs = joined = cuda_directions = 0
+    for bam_path, vcf in scenarios:
+        st = Storage()
+        load_intervals_from_file(vcf, IS_VCF, st)
+        cov = estimate_read_coverage_cached(bam_path, 2)
+        bam = BamReader(bam_path)
+        for j, (rg, ref) in enumerate(zip(st.ranges, st.ref_names)):
+            store_raw_intervals(rg)
+            merge_close_intervals(rg, READBACK)
+            cfg, n_cand = _derive_chrom_params(MmrConfig(), 14,
+                                               cov.get(ref, 0), ref)
+            for i in range(len(rg.starts)):
+                for n_perm in ((1, 5) if i == 0 else (1,)):
+                    got = {}
+                    for run in walls:
+                        rs = load_reads_given_interval(
+                            bam, ref, rg.starts[i], rg.ends[i], READBACK,
+                            cfg)
+                        f = get_methmer_sites_and_ranges(rs, cfg, 0)
+                        b = get_methmer_sites_and_ranges(rs, cfg, 1)
+                        rng = Drand48.from_srand48(j * 1_000_003 + i)
+                        t0 = time.perf_counter()
+                        if run == "host":
+                            dec = haplotag_region(rs, f, b, n_cand,
+                                                  cfg.cov_for_runtime,
+                                                  n_perm, rng)
+                        else:
+                            d0 = run_gap.dispatched
+                            dec = run_gap(
+                                rs, f, b, n_cand, cfg.cov_for_runtime,
+                                n_perm, rng,
+                                engine="torch" if run == "torch_cpu"
+                                else "cuda",
+                                device="cpu" if run == "torch_cpu" else None)
+                            if run == "cuda":
+                                cuda_directions += run_gap.dispatched - d0
+                        walls[run] += time.perf_counter() - t0
+                        got[run] = (dec, [r.hp for r in rs.reads])
+                    check(got["cuda"] == got["torch_cpu"] == got["host"],
+                          f"run_gap {ref}:{rg.starts[i]}-{rg.ends[i]} "
+                          f"n_permutations={n_perm}: decisions "
+                          f"{ {k: v[0] for k, v in got.items()} } or tags "
+                          "differ")
+                    runs += 1
+                    joined += got["cuda"][0] >= 0
+    return dict(gap_runs=runs, joined=joined,
+                cuda_directions=cuda_directions, walls_s=walls)
 
 
 def phase_profile(base):
@@ -527,6 +770,23 @@ def main():
         f"gen 1 {gm['1']:.2f} ms, gen 2 {gm['2']:.2f} ms, gen 3 "
         f"{gm['3']:.3f} ms; {card}")
 
+    t0 = time.perf_counter()
+    report["probes"] = pb = phase_probes(dev)
+    st = pb["stile"]
+    say("probes", f"{len(pb['entries'])} tools/ probe entries == their "
+        f"oracles and == the plain versions (max |d| "
+        f"{max(pb['max_abs_err'].values())}); launches {pb['launches']}; "
+        "stile at (32,16,1536), range [128,640), per call full-S / tiled-S: "
+        + "; ".join(
+            f"{stem} {st[stem + ' full']['us_per_call']:.1f} / "
+            f"{st[stem + ' tiled']['us_per_call']:.1f} us (device "
+            f"{st[stem + ' full']['device_us_per_call']:.1f} / "
+            f"{st[stem + ' tiled']['device_us_per_call']:.1f} us, "
+            f"{st[stem + ' full']['device_us_per_iter']:.3f} / "
+            f"{st[stem + ' tiled']['device_us_per_iter']:.3f} us per "
+            "iteration)" for stem in ("probe_stile", "probe_stile2"))
+        + f"; {time.perf_counter() - t0:.1f} s; {card}")
+
     work = tempfile.mkdtemp(prefix="chip_smoke_")
     t0 = time.perf_counter()
     bam, vcf, n_gaps = scale_dataset()
@@ -685,6 +945,24 @@ def main():
     say("report", "report --engine cuda (gens 3 and 2) == --engine host "
         "(.report.tsv) on the cis two-block scenario")
 
+    # 7: the single-gap engine on the parity scenarios, counted from zero
+    zero_counts()
+    rg = phase_run_gap(((bam1, vcf1), (bam2, vcf2)))
+    rg["kernel_launches"] = read_counts()
+    report["run_gap"] = rg
+    # one loop-kernel launch for each direction a cuda run dispatched
+    check(0 < rg["cuda_directions"] == rg["kernel_launches"]["loop_kernel"],
+          f"run_gap: {rg['kernel_launches']} for {rg['cuda_directions']} "
+          f"directions dispatched in {rg['gap_runs']} gap runs")
+    say("run_gap", f"run_gap --engine cuda == torch on the CPU == host "
+        f"oracle (decisions and tags) on {rg['gap_runs']} gap runs "
+        f"({rg['joined']} joined; n_permutations 1, and 5 on each "
+        f"chromosome's first gap), {rg['kernel_launches']['loop_kernel']} "
+        f"loop-kernel launches for {rg['cuda_directions']} directions "
+        f"dispatched; walls "
+        + ", ".join(f"{k} {v:.1f} s" for k, v in rg["walls_s"].items())
+        + f"; {card}")
+
     loaded = sorted(m for m in sys.modules
                     if m in ("jax", "pomfret_tpu")
                     or m.startswith(("jax.", "pomfret_tpu.")))
@@ -697,8 +975,9 @@ def main():
     csrc = "pomfret_tpu_torch/kernels/csrc/"
     bnd = kv["bounds"]
     # library_ms is null for each: no single PyTorch call computes a greedy
-    # loop, a masked ratio-sum over gathered count rows, or a score-and-
-    # commit step
+    # loop, a masked ratio-sum over gathered count rows, a score-and-commit
+    # step, a row copy with placement and sums, the lane-vector moves, or
+    # the pick-copy-place-sum loop
     print(json.dumps({"kernels": [
         {"name": "loop_kernel", "route": "cuda",
          "source": csrc + "loop_kernel.cu",
@@ -715,7 +994,13 @@ def main():
          "bound_ms": bnd[name]["bound_ms"], "bound_by": bnd[name]["bound_by"],
          "library_ms": None}
         for name, line, gen in (("score_kernel", 80, "1"),
-                                ("score_commit_kernel", 273, "2"))]}))
+                                ("score_commit_kernel", 273, "2"))] + [
+        {"name": name, "route": "cuda", "source": csrc + "probe_kernels.cu",
+         "replaces": ", ".join(PROBE_SITES[name]),
+         "at": " ".join(PROBE_AT[name]), "launches": pb["launches"][name],
+         "max_abs_err": pb["max_abs_err"][name], **probe_times(pb, name),
+         "library_ms": None}
+        for name in PROBE_SITES]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

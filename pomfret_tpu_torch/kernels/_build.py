@@ -115,7 +115,12 @@ def get_lib() -> ctypes.CDLL:
                     ("pomfret_loop_launch", [ci] + [vp] * 8 + [ci] * 5),
                     ("pomfret_score_launch", [ci] + [vp] * 6 + [ci] * 4),
                     ("pomfret_score_commit_launch",
-                     [ci] + [vp] * 7 + [ci] * 5)):
+                     [ci] + [vp] * 7 + [ci] * 5),
+                    ("pomfret_probe_row_copy_launch",
+                     [ci] + [vp] * 6 + [ci] * 6),
+                    ("pomfret_probe_lane_vec_launch", [vp] * 3 + [ci] * 5),
+                    ("pomfret_probe_v3_loop_launch", [vp] * 3 + [ci] * 5),
+                    ("pomfret_probe_stile_launch", [vp] * 4 + [ci] * 6)):
                 fn = getattr(lib, name)
                 fn.restype = ci
                 fn.argtypes = argtypes + [vp]  # the stream last

@@ -7,7 +7,8 @@ _bucket_dim, _bucket_lanes, _reseeded and pack_group produce arrays equal
 to engine_jax's (tests/test_torch_pack.py). run_jobs_batched,
 run_gaps_batched and _drain_group drive the port's dispatch
 (parallel/batch.py) with the same plan, prefetch producer, pipe depth and
-first-wins merge order as engine_jax's.
+first-wins merge order as engine_jax's; run_gap is run_gap_jax, one gap
+at a time (tests/test_torch_run_gap.py).
 
 Unlike engine_jax, a failed device group is not recomputed on the host
 oracle: it raises (see ROADMAP.md, queue 3).
@@ -409,6 +410,88 @@ def pack_group(loaded, cfg: MmrConfig, n_cand: int,
             sub, [cfg.cov_for_runtime] * len(sub), n_cand,
             pad_g=_bucket_lanes(len(sub)))))
     return datas, parts, errs
+
+
+# ---------------------------------------------------------------------------
+# one gap (engine_jax.py:489-552)
+# ---------------------------------------------------------------------------
+
+def run_gap(rs: ReadSet, ms_fwd: Methmers, ms_bwd: Methmers, n_cand: int,
+            cov_runtime: int, n_permutations: int = 1, rng=None, *,
+            engine: str = "cuda", device=None) -> int:
+    """Device-engine version of core.engine_host.haplotag_region
+    (blockjoin.c:4288-4320), step for step engine_jax.run_gap_jax: bwd then
+    fwd, the agreement gate; returns 0 cis / 1 trans / -1 no join, and on a
+    join leaves the forward tags in `rs`.
+
+    Permutation voting draws every seed-tag vector from the same drand48
+    stream in the same order as the host engine (all bwd permutes before
+    fwd). A direction's seeds run as the lanes of one batch
+    (parallel/batch.pack_gap_batch, run_gap_batch): one loop-kernel launch
+    per direction for engine "cuda", the plain loop for "torch" on
+    `device` (default: the CPU). Lanes are independent, so each seed's tags
+    equal run_gap_jax's, which dispatches the seeds one by one. The
+    iteration cap is run_gap_jax's, 2 * pad_r + 64. `run_gap.dispatched`
+    counts the directions whose batch was dispatched (a direction skipped
+    by err_permutation is not)."""
+    from .. import resolve_device
+    from ..core.engine_host import make_permutation_seeds, vote_permutations
+    from ..parallel.batch import pack_gap_batch, run_gap_batch
+
+    if engine not in ("torch", "cuda"):
+        raise ValueError(f"run_gap: engine {engine!r} is not torch or cuda")
+    engine, dev = resolve_device(engine, device)
+    if rs.n == 0 or ms_fwd.n == 0 or ms_bwd.n == 0:
+        return -1
+    initial = rs.store_haplotags()
+
+    results = {}
+    for direction, ms in ((1, ms_bwd), (0, ms_fwd)):
+        store_mmr_of_reads(rs, ms)
+        seeds, err_permutation = make_permutation_seeds(rs, direction,
+                                                        n_permutations, rng)
+        if err_permutation:
+            # blockjoin.c:4160-4163: treat the direction as unphased
+            results[direction] = (-1, None)
+            rs.restore_haplotags(initial)
+            wipe_mmr_of_reads(rs)
+            continue
+        pad_r = _round_up(max(rs.n, 8), 128)
+        pad_s = _round_up(max(ms.n, 8), 128)
+        datas = []
+        for seed in seeds:
+            rs.restore_haplotags(seed)
+            datas.append(build_gap_device_data(rs, ms, direction, pad_r,
+                                               pad_s))
+        hps = run_gap_batch(pack_gap_batch(datas, [cov_runtime] * len(datas),
+                                           n_cand),
+                            max_iters=2 * pad_r + 64, engine=engine,
+                            device=dev)
+        run_gap.dispatched += 1
+        evals, bufs = [], []
+        for dd, hp in zip(datas, hps):
+            # un-permute: device rows are in scan order
+            hp_orig = np.full(rs.n, 2, dtype=np.int32)
+            hp_orig[dd.perm[: rs.n]] = hp[: rs.n]
+            rs.restore_haplotags(hp_orig)
+            evals.append(evaluate_separation(rs, initial,
+                                             1 if direction == 0 else 0))
+            bufs.append(hp_orig)
+        join, chosen = vote_permutations(n_permutations, evals)
+        results[direction] = (join, bufs[chosen] if join >= 0 else None)
+        rs.restore_haplotags(initial)
+        wipe_mmr_of_reads(rs)
+
+    join2, _ = results[1]
+    join1, tags_fwd = results[0]
+    if join1 != join2 or (join1 == -1 and join2 == -1):
+        rs.set_all_as_unphased()
+        return -1
+    rs.restore_haplotags(tags_fwd)
+    return join1
+
+
+run_gap.dispatched = 0
 
 
 # ---------------------------------------------------------------------------

@@ -194,12 +194,14 @@ def estimate_read_coverage_cached(fn_bam: str, threads: int = 1) -> Dict[str, in
 def haplotag_region_given_bam(st: Storage, bam: BamReader, chrom: str,
                               ref_start: int, ref_end: int,
                               config: MmrConfig, n_candidates_per_iter: int,
-                              n_permutations: int = 1,
-                              perm_key: Optional[int] = None):
+                              engine: str = "host", n_permutations: int = 1,
+                              perm_key: Optional[int] = None, device=None):
     """Load one gap window + run both directions (blockjoin.c:4217-4335).
     Returns (decision, readset|None). perm_key seeds a per-gap srand48
     stream for permutation voting so results are independent of which host
-    scores which gap (PARITY.md X7); None keeps the process-global stream."""
+    scores which gap (PARITY.md X7); None keeps the process-global stream.
+    engine: "host" (the oracle), or "torch" / "cuda" on `device`
+    (kernels.engine_torch.run_gap, the JAX package's engine="jax")."""
     rs = load_reads_given_interval(
         bam, chrom, ref_start, ref_end, READBACK, config,
         st.qname2haptag_raw if st.stores_raw_tag else None)
@@ -220,8 +222,17 @@ def haplotag_region_given_bam(st: Storage, bam: BamReader, chrom: str,
     if n_permutations > 1 and perm_key is not None:
         from .core.engine_host import Drand48
         rng = Drand48.from_srand48(perm_key)
-    decision = haplotag_region(rs, ms_fwd, ms_bwd, n_candidates_per_iter,
-                               config.cov_for_runtime, n_permutations, rng)
+    if engine in ("torch", "cuda"):
+        from .kernels.engine_torch import run_gap
+        decision = run_gap(rs, ms_fwd, ms_bwd, n_candidates_per_iter,
+                           config.cov_for_runtime, n_permutations, rng,
+                           engine=engine, device=device)
+    elif engine == "host":
+        decision = haplotag_region(rs, ms_fwd, ms_bwd, n_candidates_per_iter,
+                                   config.cov_for_runtime, n_permutations,
+                                   rng)
+    else:
+        raise ValueError(f"engine {engine!r} is not host, torch or cuda")
     return decision, rs
 
 
@@ -271,7 +282,7 @@ def _blockjoin_one_chrom(st: Storage, fn_bam: str, job_i: int,
     for i in indices:
         decision, rs = haplotag_region_given_bam(
             st, bam, ref_name, rg.starts[i], rg.ends[i], cfg, n_cand,
-            n_permutations, perm_key=job_i * 1_000_003 + i)
+            n_permutations=n_permutations, perm_key=job_i * 1_000_003 + i)
         rg.decisions[i] = decision
         tags = {r.qname: r.hp for r in rs.reads} if (decision >= 0 and rs is not None) else None
         if manifest is not None:
@@ -748,7 +759,7 @@ def main_methreport(opt: CliOpt, device=None) -> int:
             for k, wi in enumerate(mine):
                 decision, _ = haplotag_region_given_bam(
                     st, bam, st.ref_names[i_ref], rg.starts[wi], rg.ends[wi],
-                    cfg, n_cand, opt.n_permutations,
+                    cfg, n_cand, n_permutations=opt.n_permutations,
                     perm_key=i_ref * 1_000_003 + wi)
                 dec_vec[win_global[(i_ref, wi)]] = decision
                 if (k + 1) % 100 == 0:

@@ -3,14 +3,19 @@ card. Marked `cuda`: without a GPU every test here skips (the same checks
 run as phase 3 of chip_smoke.py). Tolerance: exact — hp by array_equal and
 all of stats, including each lane's own iteration count; each step of the
 per-iteration kernels (score rows, cnt, hp, flags) equal to its plain
-version's, since both sum the scores exactly."""
+version's, since both sum the scores exactly. The four probe kernels
+(kernels/probes.py) on every entry of tools/probes.py: equal to the probe's
+oracle and, output for output, to their plain versions (exact; the ratio
+sums bit for bit, full-S and tiled-S alike)."""
 import numpy as np
 import pytest
 import torch
 
 from pomfret_tpu_torch.kernels import engine_fused as tf
 from pomfret_tpu_torch.kernels import engine_fused3 as tf3
+from pomfret_tpu_torch.kernels import probes as kp
 from pomfret_tpu_torch.parallel import batch as tb
+from pomfret_tpu_torch.tools import probes as tpr
 from pomfret_tpu_torch.testing import (N_FUZZ_CARD, bench_gap_batch,
                                        checked_step, fuzz_args,
                                        near_tie_args)
@@ -114,3 +119,68 @@ def test_dispatch_gens_agree(cuda, monkeypatch, gen):
     assert tb.DISPATCH_STATS["kernel_launches"][name] > n0
     hpl = tb.run_gap_batch(batch, engine="torch", device=cuda)
     assert np.array_equal(hk, h3) and np.array_equal(hpl, h3)
+
+
+@pytest.mark.parametrize("stem,variant", sorted(tpr.PROBES))
+def test_probe_kernel_matches_plain(cuda, stem, variant):
+    p = tpr.PROBES[(stem, variant)]
+    fn = kp.PROBE_KERNELS[p.kernel]
+    n0 = fn.launches
+    inputs, _, _, ok, msg = tpr.run_probe(p, cuda)
+    torch.cuda.synchronize()
+    assert ok, msg
+    assert fn.launches > n0
+    kernel, plain_fn = tpr.compared(p)
+    t = tpr.tensors(inputs, cuda)
+    for a, b in zip(p.call(kernel, t), p.call(plain_fn, t)):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+@pytest.mark.parametrize("n_iter", [1, 3])
+def test_probe_stile_full_equals_tiled(cuda, n_iter):
+    inp = tpr.stile_make()
+    rng = np.random.default_rng(7)
+    lo = rng.integers(0, 900, size=len(inp["ranges"]))
+    inp["ranges"] = np.stack([lo, lo + rng.integers(0, 600, size=len(lo))],
+                             1).astype(np.int32)
+    t = tpr.tensors(inp, cuda)
+    out = [kp.stile(t["cnt"], t["cids"], t["ranges"], tiled=tiled,
+                    n_iter=n_iter) for tiled in (False, True)]
+    plain = kp.stile_plain(t["cnt"], t["cids"], t["ranges"], tiled=False,
+                           n_iter=n_iter)
+    assert torch.equal(out[0], out[1]) and torch.equal(out[0], plain)
+
+
+@pytest.mark.parametrize("dtype", [torch.int8, torch.int32])
+def test_probe_row_copy_edges(cuda, dtype):
+    """Rows outside [0, R) copy nothing, slots outside [0, NB) place
+    nothing, on the card as in the plain version; without keep_buf the
+    buffer is not written back; the total of a launch does not carry over
+    into the next (the kernel's block counter resets itself)."""
+    src = (torch.arange(4 * 6 * 64) % 7 - 1).to(dtype).view(4, 6, 64)
+    rows = torch.tensor([0, 5, -1, 3], dtype=torch.int32)
+    slots = torch.tensor([1, 0, 0, 3], dtype=torch.int32)
+    for sum_stage in (False, True):
+        for keep_buf in (False, True):
+            for _ in range(3):
+                want = kp.row_copy_plain(src, rows, slots, W=2, NB=4,
+                                         sum_stage=sum_stage,
+                                         keep_buf=keep_buf)
+                got = kp.row_copy(src.to(cuda), rows.to(cuda),
+                                  slots.to(cuda), W=2, NB=4,
+                                  sum_stage=sum_stage, keep_buf=keep_buf)
+                assert torch.equal(got[0].cpu(), want[0])
+                assert torch.equal(got[1].cpu(), want[1])
+                assert (got[2] is None) == (not keep_buf)
+                if keep_buf:
+                    assert torch.equal(got[2].cpu(), want[2])
+
+
+def test_probe_kernels_refuse_what_they_cannot_take(cuda):
+    src = torch.zeros(2, 4, 8, dtype=torch.int8, device=cuda)  # 8-byte rows
+    idx = torch.zeros(2, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="16-byte"):
+        kp.row_copy(src, idx, idx, W=1, NB=1)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        kp.lane_vec(torch.zeros(6, 8, dtype=torch.int32, device=cuda),
+                    "smem_dma")

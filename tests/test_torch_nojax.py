@@ -3,7 +3,8 @@
 - In a subprocess (tests/conftest.py imports jax for the whole test
   session, so sys.modules here always holds it), every subcommand of
   pomfret_tpu_torch.cli runs on data from the port's own testing.py:
-  methphase, report, methstat, varhaptag, bam2cram and warmup. After them
+  methphase, report, methstat, varhaptag, bam2cram and warmup, and the
+  probes entry point runs one probe on the CPU. After them
   sys.modules holds no jax and no pomfret_tpu or pomfret_tpu.* module.
 - Statically, no .py under pomfret_tpu_torch/, nor chip_smoke.py, imports
   pomfret_tpu in any form (import, from-import, importlib.import_module
@@ -25,6 +26,8 @@ import pomfret_tpu_torch.kernels.engine_fused
 import pomfret_tpu_torch.kernels.engine_fused3
 import pomfret_tpu_torch.parallel.batch as batch
 import pomfret_tpu_torch.pipeline
+import pomfret_tpu_torch.tools.probes as probes
+from pomfret_tpu_torch.kernels.engine_torch import run_gap
 from pomfret_tpu_torch.testing import SynthConfig, make_two_block_scenario
 
 d = sys.argv[1]
@@ -62,6 +65,7 @@ n0 = batch.DISPATCH_STATS["n_dispatches"]
 run("warmup", "-o", out("w"), "-c", "50", "--engine", "torch", "--vcf",
     vcf, bam)
 assert batch.DISPATCH_STATS["n_dispatches"] > n0
+assert probes.main(["probe_v3_feasibility", "--device", "cpu"]) == 0
 loaded = sorted(m for m in sys.modules
                 if m == "jax" or m.startswith("jax.") or m == "pomfret_tpu"
                 or m.startswith("pomfret_tpu."))
