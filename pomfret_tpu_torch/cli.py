@@ -2,7 +2,8 @@
 methstat | warmup | varhaptag | bam2cram.
 
 Same flags, defaults and outputs as pomfret_tpu.cli (the argument parsing
-and checks are copies of it), with --engine auto|host|torch|cuda and
+and checks are copies of it), with --engine cuda|torch|host|auto (cuda
+by default: without a GPU a run that names no engine raises) and
 --device. One process: the JAX package's multi-host runs
 (POMFRET_NUM_PROCS > 1) are not ported.
 """
@@ -47,10 +48,11 @@ def _add_methphase_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--chunk-size", dest="chunk_size", type=int, default=50000)
     p.add_argument("--chunk-stride", dest="chunk_stride", type=int, default=1000000)
     p.add_argument("-v", dest="verbose", action="count", default=0)
-    p.add_argument("--engine", choices=ENGINES, default="auto",
-                   help="host oracle, the plain torch loop, or the CUDA "
-                        "kernels (auto: cuda when a GPU is present, else "
-                        "host); POMFRET_FUSED_GEN=1|2|3 picks the engine "
+    p.add_argument("--engine", choices=ENGINES, default="cuda",
+                   help="the CUDA kernels (default; raises without a GPU), "
+                        "the plain torch loop, the host oracle, or auto "
+                        "(cuda when a GPU is present, else host); "
+                        "POMFRET_FUSED_GEN=1|2|3 picks the engine "
                         "generation (default 3)")
     p.add_argument("--device", default=None,
                    help="device of the torch engine (default cpu); the cuda "

@@ -67,7 +67,7 @@ class CliOpt:
     write_debug_files: bool = False
     chunk_size: int = 50000
     chunk_stride: int = 1000000
-    engine: str = "auto"  # auto|host|torch|cuda
+    engine: str = "cuda"  # cuda|torch|host|auto
     resume: bool = False
     profile: bool = False
     # TPU-era extra: the reference compiles permutation voting

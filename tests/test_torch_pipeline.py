@@ -186,6 +186,8 @@ def test_report_needs_vcf(host_runs, tmp_path):
 
 
 def test_engine_choice(monkeypatch):
+    """auto, host and torch stay explicit choices; auto is cuda only with a
+    card."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert resolve_device("auto") == ("host", None)
     assert resolve_device("host") == ("host", None)
@@ -198,6 +200,31 @@ def test_engine_choice(monkeypatch):
     assert resolve_device("auto") == ("cuda", torch.device("cuda"))
     with pytest.raises(ValueError, match="cannot run on device"):
         resolve_device("cuda", "cpu")
+
+
+@pytest.mark.parametrize("cmd", ["methphase", "report", "warmup"])
+def test_engine_default_is_cuda(cmd):
+    """The engine subcommands run the CUDA kernels unless the caller names
+    another engine."""
+    from pomfret_tpu_torch.cli import _parser
+    from pomfret_tpu_torch.pipeline import CliOpt
+    a = _parser().parse_args([cmd, "x.bam"])
+    assert a.engine == "cuda"
+    assert CliOpt().engine == "cuda"
+
+
+def test_methphase_without_engine_needs_a_card(host_runs, tmp_path,
+                                               monkeypatch):
+    """No GPU and no --engine: methphase raises resolve_device("cuda")'s
+    error instead of carrying on on the CPU."""
+    bam, vcf, _ = host_runs[False]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    n0 = DISPATCH_STATS["n_dispatches"]
+    with pytest.raises(RuntimeError, match="needs a CUDA device"):
+        port_main(["methphase", "-o", str(tmp_path / "x"), "-c", "50",
+                   "--vcf", vcf, bam])
+    assert DISPATCH_STATS["n_dispatches"] == n0
+    assert not os.path.exists(str(tmp_path / "x") + ".mp.vcf")
 
 
 def test_unported_options_raise(host_runs, tmp_path, monkeypatch):
