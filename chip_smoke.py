@@ -2,6 +2,8 @@
 """Drive the PyTorch/CUDA port (pomfret_tpu_torch) once on one GPU.
 
     python3 chip_smoke.py            # every phase, one card
+    python3 chip_smoke.py --only-kernels   # card, build and phase 3 only
+                                           # (no result line)
 
 Phases, each printing one line:
  1. card: the GPU's name and power limit (nvidia-smi);
@@ -20,7 +22,11 @@ Phases, each printing one line:
     exact); their hp and stats must equal the loop kernel's. Prints the
     loop kernel's and the plain loop's time, each step kernel's time
     against its plain version's, and the whole-loop times of gens 1, 2, 3
-    at the bench shape (CUDA events);
+    at the bench shape (CUDA events). The loop kernel's time three ways:
+    (a) the whole run_batch_fused3 call, (b) _seed_count_table_b alone,
+    (c) the kernel alone on the device (queued behind a spin kernel), with
+    its per-phase clock cycles (phase_cycles); the step kernels' device
+    times the same way;
  3b. probes: the 45 entries of pomfret_tpu_torch.tools.probes (every
     variant of tools/probe_*.py) on the four probe kernels, launches counted
     from zero; each result equal to the probe's oracle, each kernel's
@@ -256,6 +262,23 @@ def phase_kernel_vs_plain(dev):
     check(score.calls > 0 and step.calls > 0, "no step was checked")
     kw = dict(D=batch.D, nc_cap=batch.nc_cap)
     ms = cuda_ms(lambda: f3.run_batch_fused3(*t, **kw), 5)
+    # (b) the seed table alone, (c) the kernel alone on the device, and the
+    # kernel's phase breakdown
+    seed_args = (t[0], t[2], t[3], t[1], batch.D)
+    seed_ms = cuda_ms(lambda: f12._seed_count_table_b(*seed_args), 5)
+    seed_device_ms = queued_ms(lambda: f12._seed_count_table_b(*seed_args), 5)
+    device_ms = loop_kernel_device_ms(t, kw, 5)
+    cycles = torch.zeros((G, 6), dtype=torch.int64, device=dev)
+    f3.run_batch_fused3(*t, **kw, phase_cycles=cycles)
+    torch.cuda.synchronize()
+    by_phase = cycles.sum(dim=0).tolist()
+    lane_iters = int(sk[:, 0].long().sum())
+    phases = dict(
+        cycles=dict(zip(PHASES, by_phase)),
+        share={p: c / max(sum(by_phase), 1) for p, c in zip(PHASES, by_phase)},
+        cycles_per_iteration=(sum(by_phase) - by_phase[0]) / max(lane_iters, 1),
+        lane_iterations=lane_iters,
+        max_lane_cycles=int(cycles.sum(dim=1).max()))
     plain_ms = cuda_ms(lambda: f3.loop_plain(*t, **kw), 1)
     gen_ms = {"1": cuda_ms(lambda: f12.run_batch_fused(*t, **kw), 2),
               "2": cuda_ms(lambda: f12.run_batch_fused2(*t, **kw), 2),
@@ -270,12 +293,17 @@ def phase_kernel_vs_plain(dev):
     steps = {
         "score_kernel": (
             cuda_ms(lambda: f12.score_candidates_batch(*sa, **skw), 50),
-            cuda_ms(lambda: f12.score_plain(*sa, **skw), 50)),
+            cuda_ms(lambda: f12.score_plain(*sa, **skw), 50),
+            queued_ms(lambda: f12.score_candidates_batch(*sa, **skw), 50)),
         "score_commit_kernel": (
             cuda_ms(lambda: f12.step_fused2(*ca, **ckw), 50),
-            cuda_ms(lambda: f12.score_commit_plain(*ca, **ckw), 50))}
+            cuda_ms(lambda: f12.score_commit_plain(*ca, **ckw), 50),
+            queued_ms(lambda: f12.step_fused2(*ca, **ckw), 50))}
     iters = int(sk[:, 0].max())
     return dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms, bounds=bounds,
+                seed_ms=seed_ms, seed_device_ms=seed_device_ms,
+                device_ms=device_ms, phases=phases,
+                step_device_ms={k: v[2] for k, v in steps.items()},
                 fuzz_trials=N_FUZZ_CARD, G=G, R=R, S=S, D=batch.D,
                 nc_cap=batch.nc_cap, iters=iters, tagged=tagged,
                 reads=G * n_reads, gen_loop_ms=gen_ms,
@@ -285,6 +313,37 @@ def phase_kernel_vs_plain(dev):
                                   "score_commit_kernel": step.max_abs_err},
                 steps_checked={"score_kernel": score.calls,
                                "score_commit_kernel": step.calls})
+
+
+PHASES = ("prologue", "range", "candidates", "scoring", "decide", "commit")
+
+
+def loop_kernel_device_ms(t, kw, reps):
+    """(c): the loop kernel alone on the device. Each repetition copies a
+    fresh seed table into the kernel's table (the kernel updates it in
+    place) and launches the kernel as run_batch_fused3 does; the copy's
+    own queued time is subtracted."""
+    import torch
+    from pomfret_tpu_torch.kernels import engine_fused as f12
+    ids, has_mmr, hp_init, seed_ok = t[:4]
+    G, R, S = ids.shape
+    D, nc_cap = kw["D"], kw["nc_cap"]
+    dev = ids.device
+    cnt0 = f12._seed_count_table_b(ids, hp_init, seed_ok, has_mmr, D)
+    cnt = cnt0.clone()
+    scal = torch.stack([t[7], t[8], t[9], t[5], t[4], t[6], t[10], t[11]],
+                       dim=1)
+    sums = torch.empty((G, 2, S), dtype=torch.float32, device=dev)
+    hp = torch.empty((G, R), dtype=torch.int32, device=dev)
+    stats = torch.empty((G, 8), dtype=torch.int32, device=dev)
+
+    def launch():
+        cnt.copy_(cnt0)
+        f12._launch(dev, "pomfret_loop_launch", ids.element_size(),
+                    ids.data_ptr(), has_mmr.data_ptr(), scal.data_ptr(),
+                    hp_init.data_ptr(), cnt.data_ptr(), sums.data_ptr(),
+                    hp.data_ptr(), stats.data_ptr(), None, G, R, S, D, nc_cap)
+    return queued_ms(launch, reps) - queued_ms(lambda: cnt.copy_(cnt0), reps)
 
 
 def queued_ms(fn, reps):
@@ -711,7 +770,7 @@ def decisions(prefix):
         return [json.loads(line)["decision"] for line in f if line.strip()]
 
 
-def main():
+def main(argv=()):
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -756,19 +815,37 @@ def main():
     report["kernel_vs_plain"] = kv
     say("kernel", f"kernel == plain on {kv['fuzz_trials']} fuzz trials, the "
         f"near-tie lanes and the bench shape G={kv['G']} R={kv['R']} S={kv['S']} D={kv['D']} "
-        f"nc={kv['nc_cap']} ({kv['iters']} iterations max): kernel "
+        f"nc={kv['nc_cap']} ({kv['iters']} iterations max): whole call "
         f"{kv['ms']:.3f} ms, plain {kv['plain_ms']:.3f} ms on {card}")
+    ph = kv["phases"]
+    say("kernel", f"loop kernel at the bench shape: (a) whole "
+        f"run_batch_fused3 call {kv['ms']:.4f} ms, (b) _seed_count_table_b "
+        f"alone {kv['seed_ms']:.4f} ms (device {kv['seed_device_ms']:.4f} "
+        f"ms), (c) the kernel alone on the device {kv['device_ms']:.4f} ms "
+        f"over {kv['iters']} iterations max, {ph['cycles_per_iteration']:.0f} "
+        f"cycles per lane iteration; phase shares "
+        + ", ".join(f"{p} {100 * v:.1f}%" for p, v in ph["share"].items())
+        + f"; {card}")
     sm, spm, n = kv["step_ms"], kv["step_plain_ms"], kv["steps_checked"]
     gm = kv["gen_loop_ms"]
     say("kernel", f"gens 1 and 2 == loop kernel (hp, stats) on the same "
         f"fixtures; every step == its plain version ({n['score_kernel']} "
         f"score and {n['score_commit_kernel']} score-commit steps); one "
-        f"bench-shape step: score_kernel {sm['score_kernel']:.4f} ms, "
+        f"bench-shape step: score_kernel {sm['score_kernel']:.4f} ms (device "
+        f"{kv['step_device_ms']['score_kernel']:.4f} ms), "
         f"score_plain {spm['score_kernel']:.4f} ms, score_commit_kernel "
-        f"{sm['score_commit_kernel']:.4f} ms, score_commit_plain "
+        f"{sm['score_commit_kernel']:.4f} ms (device "
+        f"{kv['step_device_ms']['score_commit_kernel']:.4f} ms), "
+        "score_commit_plain "
         f"{spm['score_commit_kernel']:.4f} ms; whole loop at the bench shape: "
         f"gen 1 {gm['1']:.2f} ms, gen 2 {gm['2']:.2f} ms, gen 3 "
         f"{gm['3']:.3f} ms; {card}")
+    if "--only-kernels" in argv:  # phase 3 alone, for quick chip calls
+        out_dir = os.path.join(ROOT, "chiprun_out")
+        os.makedirs(out_dir, exist_ok=True)
+        with open(os.path.join(out_dir, "chip_smoke_kernels.json"), "w") as f:
+            json.dump(report, f, indent=1, default=str)
+        return 0
 
     t0 = time.perf_counter()
     report["probes"] = pb = phase_probes(dev)
@@ -983,14 +1060,16 @@ def main():
          "source": csrc + "loop_kernel.cu",
          "replaces": "pomfret_tpu/kernels/engine_fused3.py:126",
          "launches": counts["loop_kernel"], "max_abs_err": kv["max_abs_err"],
-         "ms": kv["ms"], "plain_ms": kv["plain_ms"],
+         "ms": kv["ms"], "device_ms": kv["device_ms"],
+         "plain_ms": kv["plain_ms"],
          "bound_ms": bnd["loop_kernel"]["bound_ms"],
          "bound_by": bnd["loop_kernel"]["bound_by"], "library_ms": None}] + [
         {"name": name, "route": "cuda", "source": csrc + f"{name}.cu",
          "replaces": f"pomfret_tpu/kernels/engine_fused.py:{line}",
          "launches": gens[gen]["kernel_launches"][name],
          "max_abs_err": kv["step_max_abs_err"][name],
-         "ms": kv["step_ms"][name], "plain_ms": kv["step_plain_ms"][name],
+         "ms": kv["step_ms"][name], "device_ms": kv["step_device_ms"][name],
+         "plain_ms": kv["step_plain_ms"][name],
          "bound_ms": bnd[name]["bound_ms"], "bound_by": bnd[name]["bound_by"],
          "library_ms": None}
         for name, line, gen in (("score_kernel", 80, "1"),
@@ -1009,4 +1088,4 @@ def main():
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -112,7 +112,7 @@ def get_lib() -> ctypes.CDLL:
             lib = ctypes.CDLL(build())
             vp, ci = ctypes.c_void_p, ctypes.c_int
             for name, argtypes in (
-                    ("pomfret_loop_launch", [ci] + [vp] * 8 + [ci] * 5),
+                    ("pomfret_loop_launch", [ci] + [vp] * 9 + [ci] * 5),
                     ("pomfret_score_launch", [ci] + [vp] * 6 + [ci] * 4),
                     ("pomfret_score_commit_launch",
                      [ci] + [vp] * 7 + [ci] * 5),

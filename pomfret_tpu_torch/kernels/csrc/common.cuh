@@ -80,6 +80,34 @@ struct Score {
   int f0, f1, nz0, nz1;
 };
 
+// Per-phase cycle counts of one block, kept by one thread: lap(p) adds the
+// clock64() cycles since the previous lap (or start) to phase p. With a
+// null output nothing reads the clock. Phases of the loop kernel:
+// prologue, range, candidates, scoring, decide, commit.
+constexpr int kPhases = 6;
+enum Phase { kPrologue, kRange, kCandidates, kScoring, kDecide, kCommit };
+
+struct PhaseClock {
+  long long* out;  // this block's kPhases counters, or null
+  long long t;
+  long long acc[kPhases];
+
+  __device__ __forceinline__ explicit PhaseClock(long long* o) : out(o), t(0) {
+    for (int p = 0; p < kPhases; ++p) acc[p] = 0;
+    if (out) t = clock64();
+  }
+  __device__ __forceinline__ void lap(int p) {
+    if (!out) return;
+    const long long n = clock64();
+    acc[p] += n - t;
+    t = n;
+  }
+  __device__ __forceinline__ void store() {
+    if (!out) return;
+    for (int p = 0; p < kPhases; ++p) out[p] = acc[p];
+  }
+};
+
 template <typename IdT>
 __device__ __forceinline__ Score warp_score(const IdT* __restrict__ row,
                                             const float* cnt,

@@ -37,6 +37,8 @@
 //  - counts are small integers held in f32 (exact).
 //
 // stats[g] = [iterations of this lane, q_last, failed, commits, 0, 0, 0, 0].
+// phase_cycles (G, 6) int64, or null: thread 0's clock64() cycles in each
+// phase (common.cuh PhaseClock), barrier waits included.
 // The iteration count is the lane's own; the Pallas kernel reported the
 // iteration count of its whole lane block.
 #include <cuda_runtime.h>
@@ -58,7 +60,8 @@ loop_kernel(const IdT* __restrict__ ids, const uint8_t* __restrict__ hm,
             const int32_t* __restrict__ scal,
             const int32_t* __restrict__ hp_init, float* __restrict__ cnt_all,
             float* __restrict__ sums_all, int32_t* __restrict__ hp_all,
-            int32_t* __restrict__ stats, int R, int S, int D, int nc_cap) {
+            int32_t* __restrict__ stats, long long* __restrict__ phase_cycles,
+            int R, int S, int D, int nc_cap) {
   extern __shared__ int smem[];
   int* cand = smem;                                   // [nc_cap] read rows
   float* sc0 = reinterpret_cast<float*>(cand + nc_cap);  // [nc_cap] scores
@@ -82,6 +85,8 @@ loop_kernel(const IdT* __restrict__ ids, const uint8_t* __restrict__ hm,
   float* sum0 = sums_all + static_cast<size_t>(g) * 2 * S;
   float* sum1 = sum0 + S;
   int32_t* hp = hp_all + static_cast<size_t>(g) * R;
+  PhaseClock clk(tid == 0 && phase_cycles ? phase_cycles + g * kPhases
+                                          : nullptr);
 
   for (int r = tid; r < R; r += kThreads)
     hp[r] = hp_init[static_cast<size_t>(g) * R + r];
@@ -95,6 +100,7 @@ loop_kernel(const IdT* __restrict__ ids, const uint8_t* __restrict__ hm,
     sum1[s] = b;
   }
   __syncthreads();
+  clk.lap(kPrologue);
 
   const float covf = static_cast<float>(cov);
   int it = 0, q_last = 0, failed = 0, ncom = 0;
@@ -108,6 +114,7 @@ loop_kernel(const IdT* __restrict__ ids, const uint8_t* __restrict__ hm,
     }
     int min_i, max_i;
     site_range(fb, lnb, min0, max0, red, &min_i, &max_i);
+    clk.lap(kRange);
 
     // --- candidates: first n_cand untagged rows in [q_last, n_reads),
     //     found by a block scan in chunks of kThreads rows ---
@@ -136,6 +143,7 @@ loop_kernel(const IdT* __restrict__ ids, const uint8_t* __restrict__ hm,
     }
     const int n_valid = min(found, n_slots);
     __syncthreads();
+    clk.lap(kCandidates);
 
     // --- scoring: one warp per candidate, lanes stride over the range ---
     const int lo = max(min_i, 0), hi = min(max_i, S);
@@ -150,6 +158,7 @@ loop_kernel(const IdT* __restrict__ ids, const uint8_t* __restrict__ hm,
       }
     }
     __syncthreads();
+    clk.lap(kScoring);
 
     // --- decide (blockjoin.c:3645-3765): best diff, ties -> highest read ---
     if (tid == 0) {
@@ -168,6 +177,7 @@ loop_kernel(const IdT* __restrict__ ids, const uint8_t* __restrict__ hm,
       if (bk >= 0) hp[cand[bk]] = s_tag;
     }
     __syncthreads();
+    clk.lap(kDecide);
 
     // --- commit the winner's mers into the table, or fail the batch ---
     const int bk = s_best;
@@ -190,7 +200,9 @@ loop_kernel(const IdT* __restrict__ ids, const uint8_t* __restrict__ hm,
     }
     ++it;
     __syncthreads();
+    clk.lap(kCommit);
   }
+  clk.store();
 
   if (tid == 0) {
     int32_t* o = stats + static_cast<size_t>(g) * 8;
@@ -208,7 +220,8 @@ loop_kernel(const IdT* __restrict__ ids, const uint8_t* __restrict__ hm,
 extern "C" int pomfret_loop_launch(int id_bytes, const void* ids,
                                    const void* hm, const void* scal,
                                    const void* hp_init, void* cnt, void* sums,
-                                   void* hp_out, void* stats, int G, int R,
+                                   void* hp_out, void* stats,
+                                   void* phase_cycles, int G, int R,
                                    int S, int D, int nc_cap, void* stream) {
   if (G <= 0) return 0;
   const size_t shm = static_cast<size_t>(nc_cap) * 5 * sizeof(int);
@@ -220,14 +233,15 @@ extern "C" int pomfret_loop_launch(int id_bytes, const void* ids,
   float* sm = static_cast<float*>(sums);
   int32_t* ho = static_cast<int32_t*>(hp_out);
   int32_t* so = static_cast<int32_t*>(stats);
+  long long* pc = static_cast<long long*>(phase_cycles);
   if (id_bytes == 1) {
     loop_kernel<int8_t><<<G, pomfret::kThreads, shm, st>>>(
-        static_cast<const int8_t*>(ids), h, sc, hi, c, sm, ho, so, R, S, D,
-        nc_cap);
+        static_cast<const int8_t*>(ids), h, sc, hi, c, sm, ho, so, pc, R, S,
+        D, nc_cap);
   } else if (id_bytes == 4) {
     loop_kernel<int32_t><<<G, pomfret::kThreads, shm, st>>>(
-        static_cast<const int32_t*>(ids), h, sc, hi, c, sm, ho, so, R, S, D,
-        nc_cap);
+        static_cast<const int32_t*>(ids), h, sc, hi, c, sm, ho, so, pc, R, S,
+        D, nc_cap);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }

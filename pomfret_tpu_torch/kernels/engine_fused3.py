@@ -151,14 +151,21 @@ def loop_plain(ids, has_mmr, hp_init, seed_ok, n_reads, n_sites, q_break,
 
 def run_batch_fused3(ids, has_mmr, hp_init, seed_ok, n_reads, n_sites,
                      q_break, min0, max0, cov, n_cand, max_iters,
-                     D: int, nc_cap: int):
+                     D: int, nc_cap: int, *, phase_cycles=None):
     """Whole greedy loop for every lane; returns (hp, stats).
 
     CUDA tensors: seeds the count table (plain torch) and launches
     loop_kernel.cu once on the current stream; the launch is counted in
     `run_batch_fused3.launches`. CPU tensors: loop_plain. Any other device
-    raises. A build or launch failure raises; nothing falls back."""
+    raises. A build or launch failure raises; nothing falls back.
+
+    phase_cycles, for measurement only: a (G, 6) int64 CUDA tensor the
+    kernel fills with each lane's clock cycles by phase (prologue, range,
+    candidates, scoring, decide, commit); the CPU path has no clock and
+    refuses it."""
     dev = ids.device
+    if dev.type == "cpu" and phase_cycles is not None:
+        raise ValueError("phase_cycles is measured by the CUDA kernel only")
     if dev.type == "cpu":
         return loop_plain(ids, has_mmr, hp_init, seed_ok, n_reads, n_sites,
                           q_break, min0, max0, cov, n_cand, max_iters, D,
@@ -180,9 +187,12 @@ def run_batch_fused3(ids, has_mmr, hp_init, seed_ok, n_reads, n_sites,
     sums = torch.empty((G, 2, S), dtype=torch.float32, device=dev)
     hp = torch.empty((G, R), dtype=torch.int32, device=dev)
     stats = torch.empty((G, 8), dtype=torch.int32, device=dev)
+    if phase_cycles is not None:
+        _check("phase_cycles", phase_cycles, (torch.int64,), (G, 6), dev)
     _launch(dev, "pomfret_loop_launch", ids.element_size(), ids.data_ptr(),
             has_mmr.data_ptr(), scal.data_ptr(), hp_init.data_ptr(),
             cnt.data_ptr(), sums.data_ptr(), hp.data_ptr(), stats.data_ptr(),
+            None if phase_cycles is None else phase_cycles.data_ptr(),
             G, R, S, D, nc_cap)
     run_batch_fused3.launches += 1
     return hp, stats
