@@ -11,11 +11,15 @@ Phases, each printing one line:
     while g++ builds the port's native IO library (io/native); the script
     fails unless both load;
  3. kernel vs plain: run_batch_fused3 (the loop kernel) against loop_plain
-    (plain PyTorch) on the card, on a 10-trial random sweep (testing.
-    fuzz_args: the CPU tests' 8 trials, a dense R=1792/D=8/NC=64 window
-    and int32 ids), on the crafted near-tie lanes (testing.near_tie_args)
-    and on the bench-shape batch (G=256 lanes, D=4, R=512, S=1536); hp and
-    stats must be equal (exact). On the same fixtures the per-iteration
+    (plain PyTorch) on the card, on an 11-trial random sweep (testing.
+    fuzz_args: the CPU tests' 8 trials, a dense R=1792/D=8/NC=64 window,
+    int32 ids with a table too large for shared memory, an S=100 window
+    whose rows are copied with loads), on the crafted near-tie lanes
+    (testing.near_tie_args), the crafted candidate-set lanes (testing.
+    crafted_args) and on the bench-shape batch (G=256 lanes, D=4, R=512,
+    S=1536); hp and stats must be equal (exact), and the fixtures must
+    take both placements (all in shared memory; some buffers global) and
+    both row copies (bulk; loads). On the same fixtures the per-iteration
     engines run whole loops, gen 1 (run_batch_fused, score kernel) and gen
     2 (run_batch_fused2, score-commit kernel), with every kernel step held
     against its plain version on the same inputs (testing.checked_step,
@@ -152,28 +156,32 @@ def bound(nbytes, ops):
     return dict(bound_ms=by_ops, bound_by="operations", bytes=nbytes, ops=ops)
 
 
-# Operations per (candidate slot, site) scored: one f32 ratio and one add
-# for each of the two haplotypes.
+# Operations per (candidate slot, site) scored where the slot's read holds
+# a mer: one f32 ratio and one add for each of the two haplotypes.
 OPS_PER_SLOT_SITE = 4
 
 
 def loop_bound(t, work, stats, D):
     """Bound of one loop-kernel batch (`t`: the engines' tensors in order),
     counted from what this run's data needs (`work`, from loop_plain on the
-    same inputs): the ids cells the kernel must read, each once (per read
+    same inputs): the ids cells the kernel must read, each once (the
+    seeded rows over their lane's sites for the seed table; per candidate
     row, the sites of the ranges it was scored over, or its whole row once
-    committed), each lane's has_mmr and hp_init rows and its count table
-    over its sites read once, hp and stats written once; every valid
-    candidate slot scored over its lane's range [lo, hi) of that
-    iteration."""
-    ids, has_mmr, hp_init = t[0], t[1], t[2]
+    committed), each lane's has_mmr, seed_ok and hp_init rows read once,
+    hp and stats written once (the count table is made and kept on chip);
+    two ratios and two adds for every (valid candidate slot, site) of its
+    lane's range [lo, hi) of that iteration where the slot's read holds a
+    mer (work["mer_slot_sites"]; a site without one takes no ratio)."""
+    ids, has_mmr, hp_init, seed_ok = t[0], t[1], t[2], t[3]
     n_reads, n_sites = t[4].long(), t[5].long()
-    nbytes = (work["id_cells"] * ids.element_size()
+    seeded = (seed_ok & has_mmr & (hp_init >= 0) & (hp_init <= 1)).sum(dim=1)
+    nbytes = ((work["id_cells"] + (seeded * n_sites).sum())
+              * ids.element_size()
               + n_reads.sum() * (has_mmr.element_size()
+                                 + seed_ok.element_size()
                                  + 2 * hp_init.element_size())
-              + n_sites.sum() * 2 * D * 4 + stats.numel() * 4
-              + ids.shape[0] * 8 * 4)                     # scal
-    ops = work["slot_sites"] * OPS_PER_SLOT_SITE
+              + stats.numel() * 4 + ids.shape[0] * 8 * 4)  # scal
+    ops = work["mer_slot_sites"] * OPS_PER_SLOT_SITE
     return bound(int(nbytes), int(ops))
 
 
@@ -215,8 +223,8 @@ def phase_kernel_vs_plain(dev):
     from pomfret_tpu_torch.kernels import engine_fused3 as f3
     from pomfret_tpu_torch.parallel.batch import batch_args
     from pomfret_tpu_torch.testing import (N_FUZZ_CARD, bench_gap_batch,
-                                           checked_step, fuzz_args,
-                                           near_tie_args)
+                                           checked_step, crafted_args,
+                                           fuzz_args, near_tie_args)
 
     score = checked_step(f12.score_candidates_batch, f12.score_plain)
     step = checked_step(f12.step_fused2, f12.score_commit_plain,
@@ -245,11 +253,14 @@ def phase_kernel_vs_plain(dev):
         return t, hk, sk, err
 
     max_err = 0
+    for fn in (f3.run_batch_fused3.placements, f3.run_batch_fused3.row_routes):
+        fn.update({k: 0 for k in fn})
     for trial in range(N_FUZZ_CARD):
         _, _, _, err = run_both(*fuzz_args(trial))
         max_err = max(max_err, err)
-    _, _, _, err = run_both(*near_tie_args()[:3])
-    max_err = max(max_err, err)
+    for fixture in (near_tie_args, crafted_args):
+        _, _, _, err = run_both(*fixture()[:3])
+        max_err = max(max_err, err)
     score.first = step.first = None  # time the steps at the bench shape
     batch, n_reads = bench_gap_batch(G=256)
     G, R, S = batch.shape3
@@ -259,6 +270,12 @@ def phase_kernel_vs_plain(dev):
     max_err = max(max_err, err)
     tagged = int((hk <= 1).sum())
     check(tagged > 0, "the kernel tagged no read at the bench shape")
+    placements = dict(f3.run_batch_fused3.placements)
+    row_routes = dict(f3.run_batch_fused3.row_routes)
+    check(placements["shared"] and placements["mixed"]
+          and row_routes["bulk"] and row_routes["loads"],
+          f"the fixtures did not take both placements and both row copies: "
+          f"lanes by placement {placements}, by row route {row_routes}")
     check(score.calls > 0 and step.calls > 0, "no step was checked")
     kw = dict(D=batch.D, nc_cap=batch.nc_cap)
     ms = cuda_ms(lambda: f3.run_batch_fused3(*t, **kw), 5)
@@ -302,7 +319,8 @@ def phase_kernel_vs_plain(dev):
     iters = int(sk[:, 0].max())
     return dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms, bounds=bounds,
                 seed_ms=seed_ms, seed_device_ms=seed_device_ms,
-                device_ms=device_ms, phases=phases,
+                device_ms=device_ms, phases=phases, placements=placements,
+                row_routes=row_routes,
                 step_device_ms={k: v[2] for k, v in steps.items()},
                 fuzz_trials=N_FUZZ_CARD, G=G, R=R, S=S, D=batch.D,
                 nc_cap=batch.nc_cap, iters=iters, tagged=tagged,
@@ -319,31 +337,15 @@ PHASES = ("prologue", "range", "candidates", "scoring", "decide", "commit")
 
 
 def loop_kernel_device_ms(t, kw, reps):
-    """(c): the loop kernel alone on the device. Each repetition copies a
-    fresh seed table into the kernel's table (the kernel updates it in
-    place) and launches the kernel as run_batch_fused3 does; the copy's
-    own queued time is subtracted."""
+    """(c): the loop kernel alone on the device: the run_batch_fused3 call
+    queued behind a spin kernel, less the queued time of the one torch op
+    it launches besides the kernel (the stack of the per-lane scalars; its
+    outputs are torch.empty)."""
     import torch
-    from pomfret_tpu_torch.kernels import engine_fused as f12
-    ids, has_mmr, hp_init, seed_ok = t[:4]
-    G, R, S = ids.shape
-    D, nc_cap = kw["D"], kw["nc_cap"]
-    dev = ids.device
-    cnt0 = f12._seed_count_table_b(ids, hp_init, seed_ok, has_mmr, D)
-    cnt = cnt0.clone()
-    scal = torch.stack([t[7], t[8], t[9], t[5], t[4], t[6], t[10], t[11]],
-                       dim=1)
-    sums = torch.empty((G, 2, S), dtype=torch.float32, device=dev)
-    hp = torch.empty((G, R), dtype=torch.int32, device=dev)
-    stats = torch.empty((G, 8), dtype=torch.int32, device=dev)
-
-    def launch():
-        cnt.copy_(cnt0)
-        f12._launch(dev, "pomfret_loop_launch", ids.element_size(),
-                    ids.data_ptr(), has_mmr.data_ptr(), scal.data_ptr(),
-                    hp_init.data_ptr(), cnt.data_ptr(), sums.data_ptr(),
-                    hp.data_ptr(), stats.data_ptr(), None, G, R, S, D, nc_cap)
-    return queued_ms(launch, reps) - queued_ms(lambda: cnt.copy_(cnt0), reps)
+    from pomfret_tpu_torch.kernels import engine_fused3 as f3
+    scal = [t[7], t[8], t[9], t[5], t[4], t[6], t[10], t[11]]
+    return (queued_ms(lambda: f3.run_batch_fused3(*t, **kw), reps)
+            - queued_ms(lambda: torch.stack(scal, dim=1), reps))
 
 
 def queued_ms(fn, reps):
@@ -814,7 +816,7 @@ def main(argv=()):
     kv = phase_kernel_vs_plain(dev)
     report["kernel_vs_plain"] = kv
     say("kernel", f"kernel == plain on {kv['fuzz_trials']} fuzz trials, the "
-        f"near-tie lanes and the bench shape G={kv['G']} R={kv['R']} S={kv['S']} D={kv['D']} "
+        f"near-tie and crafted lanes and the bench shape G={kv['G']} R={kv['R']} S={kv['S']} D={kv['D']} "
         f"nc={kv['nc_cap']} ({kv['iters']} iterations max): whole call "
         f"{kv['ms']:.3f} ms, plain {kv['plain_ms']:.3f} ms on {card}")
     ph = kv["phases"]
@@ -825,7 +827,8 @@ def main(argv=()):
         f"over {kv['iters']} iterations max, {ph['cycles_per_iteration']:.0f} "
         f"cycles per lane iteration; phase shares "
         + ", ".join(f"{p} {100 * v:.1f}%" for p, v in ph["share"].items())
-        + f"; {card}")
+        + f"; lanes by placement {kv['placements']}, by row route "
+        f"{kv['row_routes']}; {card}")
     sm, spm, n = kv["step_ms"], kv["step_plain_ms"], kv["steps_checked"]
     gm = kv["gen_loop_ms"]
     say("kernel", f"gens 1 and 2 == loop kernel (hp, stats) on the same "

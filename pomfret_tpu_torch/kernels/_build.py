@@ -112,7 +112,7 @@ def get_lib() -> ctypes.CDLL:
             lib = ctypes.CDLL(build())
             vp, ci = ctypes.c_void_p, ctypes.c_int
             for name, argtypes in (
-                    ("pomfret_loop_launch", [ci] + [vp] * 9 + [ci] * 5),
+                    ("pomfret_loop_launch", [ci] + [vp] * 11 + [ci] * 7),
                     ("pomfret_score_launch", [ci] + [vp] * 6 + [ci] * 4),
                     ("pomfret_score_commit_launch",
                      [ci] + [vp] * 7 + [ci] * 5),
@@ -124,6 +124,9 @@ def get_lib() -> ctypes.CDLL:
                 fn = getattr(lib, name)
                 fn.restype = ci
                 fn.argtypes = argtypes + [vp]  # the stream last
+            lib.pomfret_loop_plan.restype = ci
+            lib.pomfret_loop_plan.argtypes = [ci] * 5 + [
+                ctypes.POINTER(ci)] * 2
             lib.pomfret_error_string.restype = ctypes.c_char_p
             lib.pomfret_error_string.argtypes = [ci]
             _LIB = lib

@@ -55,37 +55,6 @@ using namespace pomfret;
 
 constexpr int kTile = 256;  // probe_stile.py's TS
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_u32(bar))
-               : "memory");
-  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-}
-
-// Orders this thread's generic-proxy accesses to shared memory before the
-// async proxy's (the bulk copies') later ones.
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-// One arrival that also expects `bytes` of transactions, then the copy of
-// `bytes` from global memory into shared memory, completing on `bar`.
-__device__ __forceinline__ void bulk_copy_g2s(void* dst, const void* src,
-                                              uint32_t bytes, uint64_t* bar) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
-                   "r"(smem_u32(bar)),
-               "r"(bytes)
-               : "memory");
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
-      "l"(src), "r"(bytes), "r"(smem_u32(bar))
-      : "memory");
-}
-
 // A bulk copy of `bytes` from shared memory to global memory, waited on
 // until its writes are done.
 __device__ __forceinline__ void bulk_store_s2g(void* dst, const void* src,
@@ -96,22 +65,6 @@ __device__ __forceinline__ void bulk_store_s2g(void* dst, const void* src,
                : "memory");
   asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
   asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
-}
-
-// Spin until the phase of parity `parity` of `bar` has completed.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n"
-        "}\n"
-        : "=r"(done)
-        : "r"(smem_u32(bar)), "r"(parity)
-        : "memory");
-  }
 }
 
 // Block-wide sums, returned to every thread (the leading barrier keeps a

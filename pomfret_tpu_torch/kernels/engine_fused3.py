@@ -13,8 +13,9 @@ Both functions return (hp (G,R) int32, stats (G,8) int32) with stats rows
 the lane's own (the Pallas kernel reported its lane block's).
 
 - `run_batch_fused3` is the wrapper of the hand-written kernel
-  (csrc/loop_kernel.cu). It launches the kernel for CUDA tensors and runs
-  `loop_plain` only for tensors on the CPU.
+  (csrc/loop_kernel.cu), which also builds the seed count table. It
+  launches the kernel for CUDA tensors and runs `loop_plain` only for
+  tensors on the CPU.
 - `loop_plain` is the same loop in plain PyTorch, batched by hand as
   engine_fused.run_batch_fused_core batches run_direction_core
   (engine_jax.py:340-444). Lanes leave the loop one by one, as vmap's
@@ -27,17 +28,25 @@ with this version bit for bit.
 """
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from .engine_fused import (_candidates_b, _check, _launch, _range_from_seed_b,
                            _seed_count_table_b, _stats)
 
-MAX_NC_CAP = 1024  # the kernel keeps 5 words per candidate slot in shared memory
+# the kernel keeps ~61 words per candidate slot in shared memory (its
+# warps' score partials, the member lists), 125 KiB at 512
+MAX_NC_CAP = 512
+
+# placement bits of pomfret_loop_plan: the lane buffers in shared memory
+SUMS_SHARED, TABLE_SHARED, ROWS_SHARED = 1, 2, 4
+_PLANS: dict = {}
 
 
 def loop_plain(ids, has_mmr, hp_init, seed_ok, n_reads, n_sites, q_break,
                min0, max0, cov, n_cand, max_iters, D: int, nc_cap: int,
-               work: dict | None = None):
+               work: dict | None = None, table_out=None):
     """Plain PyTorch greedy loop (see the module docstring); runs on the
     device its tensors are on. Each iteration works on the lanes still
     active and writes only theirs back, so a lane that has converged keeps
@@ -45,10 +54,13 @@ def loop_plain(ids, has_mmr, hp_init, seed_ok, n_reads, n_sites, q_break,
 
     `work`, if given, is filled with what the loop kernel must do on these
     inputs: "slot_sites", the valid candidate slots scored times the sites
-    of their lane's range [lo, hi), summed over lanes and iterations; and
+    of their lane's range [lo, hi), summed over lanes and iterations;
+    "mer_slot_sites", those (slot, site) pairs where the slot's read holds
+    a mer id in [0, D), the ones that take a ratio; and
     "id_cells", the ids cells those slots and the commits read, each cell
     once (per read row, the hull of its ranges, or its whole n_sites once
-    committed)."""
+    committed). `table_out`, if given, a (G, 2D, S) f32 tensor, receives
+    the final count table."""
     G, R, S = ids.shape
     dev = ids.device
     i32, i64, f32 = torch.int32, torch.int64, torch.float32
@@ -62,7 +74,7 @@ def loop_plain(ids, has_mmr, hp_init, seed_ok, n_reads, n_sites, q_break,
     site = torch.arange(S, device=dev, dtype=i32)[None, :]
     n_slots = torch.clamp(n_cand.to(i64), max=nc_cap)
     if work is not None:
-        work["slot_sites"] = 0
+        work["slot_sites"] = work["mer_slot_sites"] = 0
         row_lo = torch.full((G * R,), S, dtype=i64, device=dev)
         row_hi = torch.zeros(G * R, dtype=i64, device=dev)
     while True:
@@ -128,6 +140,8 @@ def loop_plain(ids, has_mmr, hp_init, seed_ok, n_reads, n_sites, q_break,
             hi = max_i.clamp(max=S).to(i64)
             span = (hi - lo).clamp(min=0)
             work["slot_sites"] += int((valid.sum(dim=1) * span).sum())
+            work["mer_slot_sites"] += int((covered & in_range[:, None, :])
+                                          .sum())
             flat = L[:, None] * R + crow
             m = valid & (span > 0)[:, None]
             row_lo.scatter_reduce_(0, flat[m], lo[:, None].expand_as(flat)[m],
@@ -146,30 +160,58 @@ def loop_plain(ids, has_mmr, hp_init, seed_ok, n_reads, n_sites, q_break,
         it[L] += 1
     if work is not None:
         work["id_cells"] = int((row_hi - row_lo).clamp(min=0).sum())
+    if table_out is not None:
+        table_out.copy_(cnt)
     return hp, _stats(it, q_last, failed, ncom)
+
+
+def _plan(dev, id_bytes: int, R: int, S: int, D: int, nc_cap: int):
+    """(placement bits, dynamic shared bytes of a block) of this shape on
+    `dev`, from the kernel library's own layout (pomfret_loop_plan)."""
+    key = (dev.index, id_bytes, R, S, D, nc_cap)
+    if key not in _PLANS:
+        from ._build import get_lib
+        lib = get_lib()
+        place, smem = ctypes.c_int(), ctypes.c_int()
+        with torch.cuda.device(dev):
+            rc = lib.pomfret_loop_plan(id_bytes, R, S, D, nc_cap,
+                                       ctypes.byref(place), ctypes.byref(smem))
+        if rc != 0:
+            raise RuntimeError(f"pomfret_loop_plan failed: "
+                               f"{lib.pomfret_error_string(rc).decode()} "
+                               f"({rc}) at S={S}, D={D}, nc_cap={nc_cap}")
+        _PLANS[key] = (place.value, smem.value)
+    return _PLANS[key]
 
 
 def run_batch_fused3(ids, has_mmr, hp_init, seed_ok, n_reads, n_sites,
                      q_break, min0, max0, cov, n_cand, max_iters,
-                     D: int, nc_cap: int, *, phase_cycles=None):
+                     D: int, nc_cap: int, *, phase_cycles=None,
+                     table_out=None):
     """Whole greedy loop for every lane; returns (hp, stats).
 
-    CUDA tensors: seeds the count table (plain torch) and launches
-    loop_kernel.cu once on the current stream; the launch is counted in
-    `run_batch_fused3.launches`. CPU tensors: loop_plain. Any other device
-    raises. A build or launch failure raises; nothing falls back.
+    CUDA tensors: launches loop_kernel.cu once on the current stream (the
+    kernel seeds its count table itself); the launch is counted in
+    `run_batch_fused3.launches`, its lanes by where their buffers live in
+    `.placements` ("shared": table, sums and candidate rows in shared
+    memory; "mixed": some in global memory; "global": none shared) and by
+    how candidate rows arrive in `.row_routes` ("bulk": cp.async.bulk,
+    "loads": ordinary loads, when a row's bytes are not a multiple of 16;
+    "global": rows read in place). CPU tensors: loop_plain. Any other
+    device raises. A build or launch failure raises; nothing falls back.
 
-    phase_cycles, for measurement only: a (G, 6) int64 CUDA tensor the
-    kernel fills with each lane's clock cycles by phase (prologue, range,
-    candidates, scoring, decide, commit); the CPU path has no clock and
-    refuses it."""
+    Keyword-only outputs, off by default: phase_cycles, a (G, 6) int64
+    CUDA tensor the kernel fills with each lane's clock cycles by phase
+    (prologue, range, candidates, scoring, decide, commit; the CPU path has
+    no clock and refuses it); table_out, a (G, 2D, S) f32 tensor that
+    receives the final count table (the seed table at max_iters 0)."""
     dev = ids.device
     if dev.type == "cpu" and phase_cycles is not None:
         raise ValueError("phase_cycles is measured by the CUDA kernel only")
     if dev.type == "cpu":
         return loop_plain(ids, has_mmr, hp_init, seed_ok, n_reads, n_sites,
                           q_break, min0, max0, cov, n_cand, max_iters, D,
-                          nc_cap)
+                          nc_cap, table_out=table_out)
     if dev.type != "cuda":
         raise ValueError(f"run_batch_fused3: unsupported device {dev}")
     G, R, S = ids.shape
@@ -182,20 +224,41 @@ def run_batch_fused3(ids, has_mmr, hp_init, seed_ok, n_reads, n_sites,
     scal = torch.stack([min0, max0, cov, n_sites, n_reads, q_break, n_cand,
                         max_iters], dim=1)
     _check("scal", scal, (torch.int32,), (G, 8), dev)
-
-    cnt = _seed_count_table_b(ids, hp_init, seed_ok, has_mmr, D).contiguous()
-    sums = torch.empty((G, 2, S), dtype=torch.float32, device=dev)
-    hp = torch.empty((G, R), dtype=torch.int32, device=dev)
-    stats = torch.empty((G, 8), dtype=torch.int32, device=dev)
     if phase_cycles is not None:
         _check("phase_cycles", phase_cycles, (torch.int64,), (G, 6), dev)
-    _launch(dev, "pomfret_loop_launch", ids.element_size(), ids.data_ptr(),
-            has_mmr.data_ptr(), scal.data_ptr(), hp_init.data_ptr(),
-            cnt.data_ptr(), sums.data_ptr(), hp.data_ptr(), stats.data_ptr(),
-            None if phase_cycles is None else phase_cycles.data_ptr(),
-            G, R, S, D, nc_cap)
+    if table_out is not None:
+        _check("table_out", table_out, (torch.float32,), (G, 2 * D, S), dev)
+
+    ib = ids.element_size()
+    place, _ = _plan(dev, ib, R, S, D, nc_cap)
+    f32 = torch.float32
+    cnt = None if place & TABLE_SHARED else \
+        torch.empty((G, 2 * D, S), dtype=f32, device=dev)
+    sums = None if place & SUMS_SHARED else \
+        torch.empty((G, 2, S), dtype=f32, device=dev)
+    rows_shared = bool(place & ROWS_SHARED)
+    # a bulk copy moves 16-byte multiples between 16-byte aligned addresses
+    bulk = rows_shared and (S * ib) % 16 == 0 and ids.data_ptr() % 16 == 0
+    hp = torch.empty((G, R), dtype=torch.int32, device=dev)
+    stats = torch.empty((G, 8), dtype=torch.int32, device=dev)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+    _launch(dev, "pomfret_loop_launch", ib, ids.data_ptr(),
+            has_mmr.data_ptr(), seed_ok.data_ptr(), scal.data_ptr(),
+            hp_init.data_ptr(), ptr(cnt), ptr(sums), hp.data_ptr(),
+            stats.data_ptr(), ptr(table_out), ptr(phase_cycles), G, R, S, D,
+            nc_cap, place, int(bulk))
     run_batch_fused3.launches += 1
+    everything = SUMS_SHARED | TABLE_SHARED | ROWS_SHARED
+    run_batch_fused3.placements[
+        "shared" if place == everything else "mixed" if place else
+        "global"] += G
+    run_batch_fused3.row_routes[
+        "bulk" if bulk else "loads" if rows_shared else "global"] += G
     return hp, stats
 
 
 run_batch_fused3.launches = 0
+run_batch_fused3.placements = {"shared": 0, "mixed": 0, "global": 0}
+run_batch_fused3.row_routes = {"bulk": 0, "loads": 0, "global": 0}

@@ -617,7 +617,7 @@ def make_two_block_scenario(tmpdir: str, trans: bool = False,
 
 
 N_FUZZ = 8        # trials of the sweep that tests/test_engine_fused3.py runs
-N_FUZZ_CARD = 10  # plus the two shapes below, run on the card only
+N_FUZZ_CARD = 11  # plus the three shapes below, run on the card only
 
 
 def fuzz_args(trial: int):
@@ -626,14 +626,18 @@ def fuzz_args(trial: int):
     and a full one, odd D, tiny R/S, and every fourth trial with
     nc_cap == n_cand. Trial 8 has the shape of the dense windows of
     bench.py's BENCH_SCALE=5 set (R=1792, D=8, NC=64); trial 9 a
-    dictionary wider than int8 (D=256, int32 ids). Returns (numpy args in
-    the engines' order, D, nc_cap)."""
+    dictionary wider than int8 (D=256, int32 ids), whose count table is
+    too large for shared memory; trial 10 rows of S=100 int8 ids, not a
+    multiple of 16 bytes, so the loop kernel copies them with loads.
+    Returns (numpy args in the engines' order, D, nc_cap)."""
     rng = np.random.default_rng(1000 + trial)
     G = 8
     if trial == 8:
         R, S, D, n_cand = 1792, 1536, 8, 50
     elif trial == 9:
         R, S, D, n_cand = 96, 128, 256, 12
+    elif trial == 10:
+        R, S, D, n_cand = 80, 100, 4, 14
     else:
         R = int(rng.integers(2, 7)) * 16
         S = int(rng.integers(1, 5)) * 32
@@ -712,6 +716,79 @@ def near_tie_args(G: int = 8, R: int = 64, S: int = 32):
     args = (ids, ids.max(axis=2) >= 0, hp_init, hp_init <= 1, n_reads,
             n_sites, n_reads.copy(), z, z, np.ones(G, np.int32),
             np.full(G, 14, np.int32), np.ones(G, np.int32))
+    return args, 4, 16, layout
+
+
+# Crafted lanes that drive the loop kernel's candidate-set upkeep. Rows are
+# listed in order: "empty" candidates carry no mer (never tagged: a failed
+# iteration), "good" ones carry mer id 0 on sites 0-7, where three hap-0
+# seed reads carry id 0 and three hap-1 seed reads id 1 (committed to hap
+# 0), "tie" ones are the two candidates of NEAR_TIE_LANES["tie"] on sites
+# 8-13 (equal exact scores, a tie to the higher read).
+#  - "refill": n_cand 4; the first iteration fails on four empty rows,
+#    q_last passes them all and the set is empty: the prefetched row and
+#    refill rounds fill it again.
+#  - "miss": n_cand 20 > nc_cap 16, so a failure moves q_last past the
+#    prefetched row (the speculation miss): it is dropped and the set is
+#    refilled beyond q_last.
+#  - "reuse_tie": n_cand 2 and max_iters 3; two good rows commit first
+#    (iterations 1 and 2), so the tied pair sits in slots that were reused,
+#    the higher read in the lower slot; it wins the third iteration.
+CRAFTED_LANES = {
+    "refill": dict(rows=["empty"] * 4 + ["seeds"] + ["good"] * 10, n_cand=4,
+                   max_iters=None),
+    "miss": dict(rows=["empty"] * 18 + ["seeds"] + ["good"] * 10, n_cand=20,
+                 max_iters=None),
+    "reuse_tie": dict(rows=["seeds", "good", "good", "tie0", "tie1"],
+                      n_cand=2, max_iters=3),
+}
+
+
+def crafted_args(G: int = 8, R: int = 96, S: int = 32):
+    """The CRAFTED_LANES as one batch of G lanes (the rest dead), D = 4,
+    nc_cap = 16, cov = 1, the valid range sites 0-14 (site 14 closes it
+    with an id-3 seed). Returns (numpy args in the engines' order, D,
+    nc_cap, {name: (lane, {row kind: [rows]})})."""
+    ids = np.full((G, R, S), -1, np.int8)
+    hp_init = np.full((G, R), 2, np.int32)
+    n_reads = np.zeros(G, np.int32)
+    n_cand = np.full(G, 14, np.int32)
+    max_iters = np.zeros(G, np.int32)
+    tie = NEAR_TIE_LANES["tie"]
+    seeds = [([0] * 8, 0)] * 3 + [([1] * 8, 1)] * 3   # (ids on 0-7, hap)
+    tie_seeds = []
+    for i, (c, n, h) in enumerate(tie["sites"]):
+        tie_seeds += [(8 + i, 0, 0)] * c + [(8 + i, 1, 0)] * (n - c) \
+            + [(8 + i, 2, 1)] * h
+    layout = {}
+    for g, (name, spec) in enumerate(CRAFTED_LANES.items()):
+        r = 0
+        kinds = {}
+        for kind in spec["rows"]:
+            if kind == "seeds":
+                for mers, hap in seeds:
+                    ids[g, r, :8] = mers
+                    hp_init[g, r] = hap
+                    r += 1
+                for site, mer, hap in tie_seeds + [(14, 3, 0)]:
+                    ids[g, r, site] = mer
+                    hp_init[g, r] = hap
+                    r += 1
+                continue
+            kinds.setdefault(kind, []).append(r)
+            if kind == "good":
+                ids[g, r, :8] = 0
+            elif kind.startswith("tie"):
+                ids[g, r, [8 + k for k in tie["cands"][int(kind[3])]]] = 0
+            r += 1
+        n_reads[g] = r
+        n_cand[g] = spec["n_cand"]
+        max_iters[g] = spec["max_iters"] or 2 * R + 16
+        layout[name] = (g, kinds)
+    z = np.zeros(G, np.int32)
+    args = (ids, ids.max(axis=2) >= 0, hp_init, hp_init <= 1, n_reads,
+            np.where(n_reads > 0, 15, 1).astype(np.int32), n_reads.copy(),
+            z, z, np.ones(G, np.int32), n_cand, max_iters)
     return args, 4, 16, layout
 
 

@@ -32,8 +32,9 @@ from pomfret_tpu.parallel.batch import (_run_batch_jit, batch_args,
                                         pack_gap_batch)
 from pomfret_tpu.testing import SynthConfig, make_two_block_scenario
 from pomfret_tpu_torch.kernels import engine_fused3 as tf3
-from pomfret_tpu_torch.testing import (N_FUZZ, NEAR_TIE_LANES, fuzz_args,
-                                       near_tie_args)
+from pomfret_tpu_torch.testing import (CRAFTED_LANES, N_FUZZ,
+                                       NEAR_TIE_LANES, crafted_args,
+                                       fuzz_args, near_tie_args)
 
 torch.set_num_threads(1)
 
@@ -174,6 +175,58 @@ def test_loop_plain_near_tie(name):
     assert _host_oracle_pick(spec, seeds) == host
 
 
+@functools.lru_cache(maxsize=1)
+def _crafted_run():
+    args, D, nc_cap, layout = crafted_args()
+    hv, st = _assert_port_matches_jax(args, D, nc_cap)
+    return args, hv, st, layout
+
+
+@pytest.mark.parametrize("name", sorted(CRAFTED_LANES))
+def test_loop_plain_crafted(name):
+    """The lanes that drive the loop kernel's candidate-set upkeep (a
+    failure that empties the set, a failure past the prefetched row, a tie
+    in reused slots): loop_plain equals both JAX engines on them, and each
+    lane ends as its design says."""
+    args, hv, st, layout = _crafted_run()
+    g, rows = layout[name]
+    assert (hv[g, rows["good"]] == 0).all()          # good rows commit to 0
+    if name == "reuse_tie":                          # the tie, to the higher
+        assert hv[g, rows["tie1"]].tolist() == [0]   # read, in 3 iterations
+        assert hv[g, rows["tie0"]].tolist() == [2]
+        assert st[g, 0] == 3 and st[g, 3] == 3
+    else:                                            # the empty rows fail
+        assert (hv[g, rows["empty"]] == 2).all()
+        assert st[g, 1] >= len(rows["empty"]) and st[g, 3] == 10
+    if name == "miss":                               # q_last passed the
+        assert args[10][g] > 16                      # first 16 members and
+        assert st[g, 1] >= 20                        # two more rows
+
+
+def test_wrapper_table_out():
+    """The wrapper's table write-back: at max_iters 0 the seed table
+    (_seed_count_table_b), after the loop the table of the commits."""
+    from pomfret_tpu_torch.kernels.engine_fused import _seed_count_table_b
+    args, D, nc_cap = fuzz_args(1)
+    t = [torch.from_numpy(np.ascontiguousarray(a)) for a in args]
+    G, R, S = t[0].shape
+    seed = _seed_count_table_b(t[0], t[2], t[3], t[1], D)
+    out = torch.full((G, 2 * D, S), -1.0)
+    tf3.run_batch_fused3(*t[:11], torch.zeros_like(t[11]), D=D,
+                         nc_cap=nc_cap, table_out=out)
+    assert torch.equal(out, seed)
+    hp, st = tf3.run_batch_fused3(*t, D=D, nc_cap=nc_cap, table_out=out)
+    # each commit adds its row's valid mers to one haplotype's rows
+    added = (out - seed).sum(dim=(1, 2))
+    ids = t[0].long()
+    won = (hp != t[2]) & (hp <= 1)
+    want = (((ids >= 0) & (ids < D)).sum(dim=2) * won).sum(dim=1)
+    assert torch.equal(added.long(), want) and int(st[:, 3].sum()) > 0
+    with pytest.raises(ValueError, match="CUDA kernel only"):
+        tf3.run_batch_fused3(*t, D=D, nc_cap=nc_cap,
+                             phase_cycles=torch.zeros((G, 6), dtype=torch.int64))
+
+
 def test_wrapper_rejects_other_devices():
     args, D, nc_cap = fuzz_args(0)
     targs = [torch.from_numpy(np.ascontiguousarray(a)).to("meta")
@@ -215,6 +268,7 @@ def test_loop_plain_work_count(trial):
     assert 0 < work["slot_sites"] <= int(
         (st[:, 0].long() * n_slots * n_sites.long()).sum())
     assert 0 < work["id_cells"] <= int((n_reads.long() * n_sites.long()).sum())
+    assert 0 < work["mer_slot_sites"] <= work["slot_sites"]
 
     one = t[:11] + [torch.clamp(t[11], max=1)]
     work1 = {}

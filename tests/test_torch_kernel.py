@@ -17,7 +17,7 @@ from pomfret_tpu_torch.kernels import probes as kp
 from pomfret_tpu_torch.parallel import batch as tb
 from pomfret_tpu_torch.tools import probes as tpr
 from pomfret_tpu_torch.testing import (N_FUZZ_CARD, bench_gap_batch,
-                                       checked_step, fuzz_args,
+                                       checked_step, crafted_args, fuzz_args,
                                        near_tie_args)
 
 pytestmark = pytest.mark.cuda
@@ -60,6 +60,68 @@ def test_kernel_matches_plain_bench_shape(cuda):
     hp, st = _both(tb.batch_args(batch, 2 * batch.shape3[1] + 64), batch.D,
                    batch.nc_cap, cuda)
     assert (hp <= 1).sum() > 0 and (st[:, 3] > 0).all()
+
+
+def test_kernel_matches_plain_crafted(cuda):
+    """A failure that empties the candidate set (refill), one that moves
+    q_last past the prefetched row (speculation miss), a tie in reused
+    slots (to the higher read, not the higher slot)."""
+    args, D, nc_cap, layout = crafted_args()
+    hp, _ = _both(args, D, nc_cap, cuda)
+    g, rows = layout["reuse_tie"]
+    assert hp[g, rows["tie1"]].tolist() == [0]
+    assert hp[g, rows["tie0"]].tolist() == [2]
+
+
+def _fixture(name):
+    if name == "bench":
+        batch, _ = bench_gap_batch(G=64)
+        return (tb.batch_args(batch, 2 * batch.shape3[1] + 64), batch.D,
+                batch.nc_cap)
+    return fuzz_args(name)
+
+
+@pytest.mark.parametrize("name,placement,route", [
+    ("bench", "shared", "bulk"),   # table, sums and rows in shared memory
+    (8, "shared", "bulk"),         # the dense shape: one block per SM
+    (9, "mixed", "bulk"),          # a 256 KiB table stays in global memory
+    (10, "shared", "loads")])      # 100-byte rows: no bulk copy
+def test_kernel_placement(cuda, name, placement, route):
+    args, D, nc_cap = _fixture(name)
+    G = args[0].shape[0]
+    p0 = dict(tf3.run_batch_fused3.placements)
+    r0 = dict(tf3.run_batch_fused3.row_routes)
+    _both(args, D, nc_cap, cuda)
+    assert tf3.run_batch_fused3.placements[placement] - p0[placement] == G
+    assert tf3.run_batch_fused3.row_routes[route] - r0[route] == G
+
+
+@pytest.mark.parametrize("name", ["bench", 9])
+def test_kernel_seed_table(cuda, name):
+    """At max_iters 0 the kernel's table write-back is the seed table of
+    _seed_count_table_b, in shared memory (bench) and in global (trial 9)."""
+    args, D, nc_cap = _fixture(name)
+    t = [torch.from_numpy(np.ascontiguousarray(a)).to(cuda) for a in args]
+    t[11] = torch.zeros_like(t[11])
+    G, R, S = t[0].shape
+    out = torch.full((G, 2 * D, S), -1.0, device=cuda)
+    hp, st = tf3.run_batch_fused3(*t, D=D, nc_cap=nc_cap, table_out=out)
+    seed = tf._seed_count_table_b(t[0], t[2], t[3], t[1], D)
+    torch.cuda.synchronize()
+    assert torch.equal(out, seed)
+    assert torch.equal(hp, t[2]) and not st[:, [0, 2, 3]].any()
+
+
+def test_kernel_phase_cycles(cuda):
+    args, D, nc_cap = fuzz_args(1)
+    t = [torch.from_numpy(np.ascontiguousarray(a)).to(cuda) for a in args]
+    cycles = torch.zeros((t[0].shape[0], 6), dtype=torch.int64, device=cuda)
+    hp, st = tf3.run_batch_fused3(*t, D=D, nc_cap=nc_cap, phase_cycles=cycles)
+    h0, s0 = tf3.run_batch_fused3(*t, D=D, nc_cap=nc_cap)
+    torch.cuda.synchronize()
+    assert torch.equal(hp, h0) and torch.equal(st, s0)
+    ran = st[:, 0] > 0
+    assert (cycles[:, 0] > 0).all() and (cycles[ran][:, 3] > 0).all()
 
 
 def test_dispatch_engines_agree(cuda):
