@@ -16,10 +16,14 @@ Phases, each printing one line:
     int32 ids with a table too large for shared memory, an S=100 window
     whose rows are copied with loads), on the crafted near-tie lanes
     (testing.near_tie_args), the crafted candidate-set lanes (testing.
-    crafted_args) and on the bench-shape batch (G=256 lanes, D=4, R=512,
-    S=1536); hp and stats must be equal (exact), and the fixtures must
-    take both placements (all in shared memory; some buffers global) and
-    both row copies (bulk; loads). On the same fixtures the per-iteration
+    crafted_args), two wide candidate sets (testing.wide_args: nc_cap 528,
+    and 1040, whose slot arrays stay in global memory) and on the
+    bench-shape batch (G=256 lanes, D=4, R=512, S=1536); hp and stats must
+    be equal (exact), and the fixtures must take both placements (all in
+    shared memory; some buffers global), both slot placements and both row
+    copies (bulk; loads), and each step kernel both of its placements
+    (table, sums and slots' sums shared; the table global). On the same
+    fixtures the per-iteration
     engines run whole loops, gen 1 (run_batch_fused, score kernel) and gen
     2 (run_batch_fused2, score-commit kernel), with every kernel step held
     against its plain version on the same inputs (testing.checked_step,
@@ -30,7 +34,7 @@ Phases, each printing one line:
     (a) the whole run_batch_fused3 call, (b) _seed_count_table_b alone,
     (c) the kernel alone on the device (queued behind a spin kernel), with
     its per-phase clock cycles (phase_cycles); the step kernels' device
-    times the same way;
+    times the same way, each beside its bound and its share of it;
  3b. probes: the 45 entries of pomfret_tpu_torch.tools.probes (every
     variant of tools/probe_*.py) on the four probe kernels, launches counted
     from zero; each result equal to the probe's oracle, each kernel's
@@ -224,7 +228,8 @@ def phase_kernel_vs_plain(dev):
     from pomfret_tpu_torch.parallel.batch import batch_args
     from pomfret_tpu_torch.testing import (N_FUZZ_CARD, bench_gap_batch,
                                            checked_step, crafted_args,
-                                           fuzz_args, near_tie_args)
+                                           fuzz_args, near_tie_args,
+                                           wide_args)
 
     score = checked_step(f12.score_candidates_batch, f12.score_plain)
     step = checked_step(f12.step_fused2, f12.score_commit_plain,
@@ -253,12 +258,17 @@ def phase_kernel_vs_plain(dev):
         return t, hk, sk, err
 
     max_err = 0
-    for fn in (f3.run_batch_fused3.placements, f3.run_batch_fused3.row_routes):
+    for fn in (f3.run_batch_fused3.placements, f3.run_batch_fused3.row_routes,
+               f12.score_candidates_batch.placements,
+               f12.step_fused2.placements):
         fn.update({k: 0 for k in fn})
     for trial in range(N_FUZZ_CARD):
         _, _, _, err = run_both(*fuzz_args(trial))
         max_err = max(max_err, err)
-    for fixture in (near_tie_args, crafted_args):
+    # nc_cap 528 (slot arrays shared) and 1040 (slot arrays global; both
+    # step kernels at NC 1040)
+    for fixture in (near_tie_args, crafted_args, lambda: wide_args(520),
+                    lambda: wide_args(1030)):
         _, _, _, err = run_both(*fixture()[:3])
         max_err = max(max_err, err)
     score.first = step.first = None  # time the steps at the bench shape
@@ -273,9 +283,17 @@ def phase_kernel_vs_plain(dev):
     placements = dict(f3.run_batch_fused3.placements)
     row_routes = dict(f3.run_batch_fused3.row_routes)
     check(placements["shared"] and placements["mixed"]
+          and placements["slots_shared"] and placements["slots_global"]
           and row_routes["bulk"] and row_routes["loads"],
-          f"the fixtures did not take both placements and both row copies: "
-          f"lanes by placement {placements}, by row route {row_routes}")
+          f"the fixtures did not take both placements, both slot placements "
+          f"and both row copies: lanes by placement {placements}, by row "
+          f"route {row_routes}")
+    step_placements = {
+        "score_kernel": dict(f12.score_candidates_batch.placements),
+        "score_commit_kernel": dict(f12.step_fused2.placements)}
+    check(all(p["shared"] and p["mixed"] for p in step_placements.values()),
+          f"the step kernels did not take both placements: lanes by "
+          f"placement {step_placements}")
     check(score.calls > 0 and step.calls > 0, "no step was checked")
     kw = dict(D=batch.D, nc_cap=batch.nc_cap)
     ms = cuda_ms(lambda: f3.run_batch_fused3(*t, **kw), 5)
@@ -320,7 +338,7 @@ def phase_kernel_vs_plain(dev):
     return dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms, bounds=bounds,
                 seed_ms=seed_ms, seed_device_ms=seed_device_ms,
                 device_ms=device_ms, phases=phases, placements=placements,
-                row_routes=row_routes,
+                row_routes=row_routes, step_placements=step_placements,
                 step_device_ms={k: v[2] for k, v in steps.items()},
                 fuzz_trials=N_FUZZ_CARD, G=G, R=R, S=S, D=batch.D,
                 nc_cap=batch.nc_cap, iters=iters, tagged=tagged,
@@ -843,6 +861,15 @@ def main(argv=()):
         f"{spm['score_commit_kernel']:.4f} ms; whole loop at the bench shape: "
         f"gen 1 {gm['1']:.2f} ms, gen 2 {gm['2']:.2f} ms, gen 3 "
         f"{gm['3']:.3f} ms; {card}")
+    for name in ("score_kernel", "score_commit_kernel"):
+        b, dms = kv["bounds"][name], kv["step_device_ms"][name]
+        say("kernel", f"{name}, one bench-shape step: whole call "
+            f"{sm[name]:.4f} ms, device {dms:.4f} ms, bound "
+            f"{b['bound_ms']:.4f} ms ({b['bound_by']}: {b['bytes']} bytes), "
+            f"{100 * b['bound_ms'] / dms:.1f}% of the device time, "
+            f"{100 * b['bound_ms'] / sm[name]:.1f}% of the call; lanes by "
+            f"placement over the fixtures {kv['step_placements'][name]}; "
+            f"{card}")
     if "--only-kernels" in argv:  # phase 3 alone, for quick chip calls
         out_dir = os.path.join(ROOT, "chiprun_out")
         os.makedirs(out_dir, exist_ok=True)

@@ -112,10 +112,10 @@ def get_lib() -> ctypes.CDLL:
             lib = ctypes.CDLL(build())
             vp, ci = ctypes.c_void_p, ctypes.c_int
             for name, argtypes in (
-                    ("pomfret_loop_launch", [ci] + [vp] * 11 + [ci] * 7),
-                    ("pomfret_score_launch", [ci] + [vp] * 6 + [ci] * 4),
+                    ("pomfret_loop_launch", [ci] + [vp] * 12 + [ci] * 7),
+                    ("pomfret_score_launch", [ci] + [vp] * 7 + [ci] * 5),
                     ("pomfret_score_commit_launch",
-                     [ci] + [vp] * 7 + [ci] * 5),
+                     [ci] + [vp] * 8 + [ci] * 6),
                     ("pomfret_probe_row_copy_launch",
                      [ci] + [vp] * 6 + [ci] * 6),
                     ("pomfret_probe_lane_vec_launch", [vp] * 3 + [ci] * 5),
@@ -124,9 +124,11 @@ def get_lib() -> ctypes.CDLL:
                 fn = getattr(lib, name)
                 fn.restype = ci
                 fn.argtypes = argtypes + [vp]  # the stream last
-            lib.pomfret_loop_plan.restype = ci
-            lib.pomfret_loop_plan.argtypes = [ci] * 5 + [
-                ctypes.POINTER(ci)] * 2
+            for name, n_in in (("pomfret_loop_plan", 5),
+                               ("pomfret_step_plan", 4)):
+                fn = getattr(lib, name)
+                fn.restype = ci
+                fn.argtypes = [ci] * n_in + [ctypes.POINTER(ci)] * 3
             lib.pomfret_error_string.restype = ctypes.c_char_p
             lib.pomfret_error_string.argtypes = [ci]
             _LIB = lib

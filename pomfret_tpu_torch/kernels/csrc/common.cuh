@@ -1,16 +1,61 @@
 // Device code shared by the greedy-loop kernels of this directory: warp and
-// block reductions, the valid-site range and the scoring of one candidate
-// row. Every kernel here runs blocks of kThreads threads.
+// block reductions, the valid-site range, the scoring of candidate rows,
+// bulk copies and the shared-memory opt-in. The loop and probe kernels run
+// blocks of kThreads threads, the per-iteration kernels of kStepThreads.
 #pragma once
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <atomic>
 
 namespace pomfret {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr unsigned kFull = 0xffffffffu;
+
+// placement bits: which per-lane buffers of a kernel live in shared memory
+// (the others in per-lane global buffers, reached through the same pointers)
+enum Place { kSumsShared = 1, kTableShared = 2, kRowsShared = 4,
+             kSlotsShared = 8 };
+
+__host__ __device__ inline unsigned align_up(unsigned x, unsigned a) {
+  return (x + a - 1) / a * a;
+}
+
+// The most dynamic shared memory a block may opt in to on the current
+// device; returns a CUDA error code.
+inline int optin_bytes(int* out) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(out, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                               dev);
+  return static_cast<int>(e);
+}
+
+// Lets `kernel` launch with up to the opt-in maximum of dynamic shared
+// memory on the current device (above 48 KB a launch needs it). The
+// attribute belongs to the (kernel, device) pair, so each launcher keeps in
+// `done` one bit per device index it has set it on; a device from index 64
+// on has it set at every launch. Returns a CUDA error code.
+template <typename Kernel>
+inline int allow_optin(Kernel* kernel, std::atomic<unsigned long long>& done) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const unsigned long long bit = dev < 64 ? 1ull << dev : 0ull;
+  if (bit && (done.load(std::memory_order_acquire) & bit)) return 0;
+  int optin = 0;
+  const int rc = optin_bytes(&optin);
+  if (rc != 0) return rc;
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           optin);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  done.fetch_or(bit, std::memory_order_release);
+  return 0;
+}
 
 __device__ __forceinline__ int warp_min(int v) {
   for (int o = 16; o > 0; o >>= 1) v = min(v, __shfl_xor_sync(kFull, v, o));
@@ -54,19 +99,7 @@ __device__ __forceinline__ int block_max(int v, int* red) {
   return r;
 }
 
-// Valid-site range of one lane (closed form of blockjoin.c:3669-3691),
-// given each thread's partial first-blocked-right (fb) and
-// last-blocked-left (lnb) sites; returned to every thread.
-__device__ __forceinline__ void site_range(int fb, int lnb, int min0,
-                                           int max0, int* red, int* min_i,
-                                           int* max_i) {
-  fb = block_min(fb, red);
-  lnb = block_max(lnb, red);
-  *max_i = fb > max0 ? fb - 1 : max0;
-  *min_i = min0 < 0 ? min0 : (lnb == min0 ? min0 : (lnb >= 0 ? lnb + 1 : 0));
-}
-
-// One warp scores one candidate row over the sites [lo, hi): for each site
+// The scoring of a candidate row over the sites [lo, hi): for each site
 // whose mer id is found in the table, the ratio cnt/max(sum, 1) of each
 // haplotype whose sum is positive (an f32 IEEE division), summed in f64.
 // Every ratio is an f32 multiple of 2^-(23+ceil(log2 sum)), so the f64 sum
@@ -136,34 +169,6 @@ __device__ __forceinline__ void score_cells(Score& r, float c0, float c1,
   }
 }
 
-// Adds site s of a candidate whose mer id there is `id` to r.
-__device__ __forceinline__ void score_site(Score& r, int id, int s,
-                                           const float* cnt,
-                                           const float* sum0,
-                                           const float* sum1, int S, int D) {
-  if (id < 0 || id >= D) return;
-  score_cells(r, cnt[static_cast<size_t>(2 * id) * S + s],
-              cnt[static_cast<size_t>(2 * id + 1) * S + s], sum0[s], sum1[s]);
-}
-
-template <typename IdT>
-__device__ __forceinline__ Score warp_score(const IdT* __restrict__ row,
-                                            const float* cnt,
-                                            const float* sum0,
-                                            const float* sum1, int lo,
-                                            int hi, int S, int D) {
-  Score r{0.0, 0.0, 0, 0, 0, 0};
-  for (int s = lo + static_cast<int>(threadIdx.x & 31); s < hi; s += 32)
-    score_site(r, static_cast<int>(row[s]), s, cnt, sum0, sum1, S, D);
-  r.a0 = warp_sum(r.a0);
-  r.a1 = warp_sum(r.a1);
-  r.f0 = warp_sum(r.f0);
-  r.f1 = warp_sum(r.f1);
-  r.nz0 = warp_sum(r.nz0);
-  r.nz1 = warp_sum(r.nz1);
-  return r;
-}
-
 // --- bulk copies (cp.async.bulk, the Tensor Memory Accelerator's
 // one-dimensional form) completing on an mbarrier in shared memory ---
 
@@ -224,6 +229,245 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
         : "r"(smem_u32(bar)), "r"(parity)
         : "memory");
   }
+}
+
+// --- the per-iteration kernels (score_kernel.cu, score_commit_kernel.cu):
+// one block per lane scores the lane's NC candidate rows ---
+
+// Their blocks are twice the others': a lane's scoring is a chain of
+// dependent shuffles and lookups, so an SM needs many warps to hide their
+// latency, and there are only ~2 lanes an SM (G=256 over 132 SMs). Two
+// blocks of kStepThreads share an SM at up to 64 registers a thread.
+constexpr int kStepThreads = 512;
+constexpr int kStepWarps = kStepThreads / 32;
+
+// Dynamic shared memory of one block of either kernel: the mbarrier, the
+// range partials, then the slots' sums, the site sums and the count table
+// where their placement bits say so (kSlotsShared, kSumsShared,
+// kTableShared), else nothing: they stay in global memory.
+struct StepLayout {
+  unsigned bar, red, slots, sums, table, total;
+};
+
+// The slots' sums of one lane: per slot the f64 ratio sums and the found
+// and nonzero counts of each haplotype.
+__host__ __device__ inline unsigned slot_sums_bytes(int NC) {
+  return align_up(static_cast<unsigned>(NC) * 32u, 16);
+}
+
+__host__ __device__ inline StepLayout step_layout(int NC, int S, int D,
+                                                 int place) {
+  StepLayout L;
+  unsigned o = 0;
+  L.bar = o;   o += 16;
+  L.red = o;   o += 2 * kStepWarps * 4;
+  o = align_up(o, 16);
+  L.slots = o;
+  if (place & kSlotsShared) o += slot_sums_bytes(NC);
+  o = align_up(o, 128);
+  L.sums = o;
+  if (place & kSumsShared) o += 2u * S * 4;
+  o = align_up(o, 16);
+  L.table = o;
+  if (place & kTableShared) o += 2u * D * S * 4;
+  L.total = o;
+  return L;
+}
+
+struct SlotSums {
+  double *a0, *a1;
+  int *f0, *f1, *nz0, *nz1;
+};
+
+__device__ __forceinline__ SlotSums slot_sums_at(unsigned char* base,
+                                                 int NC) {
+  double* d = reinterpret_cast<double*>(base);
+  int* i = reinterpret_cast<int*>(d + 2 * NC);
+  return SlotSums{d, d + NC, i, i + NC, i + 2 * NC, i + 3 * NC};
+}
+
+// A lane's count table and site sums, wherever they live: the count of mer
+// id d, haplotype h at site s is cnt[(2d+h) * stride + s - toff], its sums
+// sum0[s - soff], sum1[s - soff].
+struct TableView {
+  const float* cnt;
+  const float* sum0;
+  const float* sum1;
+  int stride, toff, soff;
+};
+
+// Adds site s, whose mer id is `id`, to r if s is in [lo, hi) and the id
+// in [0, D).
+__device__ __forceinline__ void score_at(Score& r, int id, int s, int lo,
+                                         int hi, const TableView& t, int D) {
+  if (id < 0 || id >= D || s < lo || s >= hi) return;
+  const float* c =
+      t.cnt + static_cast<size_t>(2 * id) * t.stride + (s - t.toff);
+  score_cells(r, c[0], c[t.stride], t.sum0[s - t.soff], t.sum1[s - t.soff]);
+}
+
+// A lane loads a candidate row's ids 16 bytes at once (16 int8 or 4 int32
+// sites), from 16-byte aligned addresses: a row whose bytes are not a
+// multiple of 16 starts and ends inside a chunk, whose sites outside the
+// row fail the range test. A tile is the kTileChunks chunks of one warp.
+constexpr int kChunk = 16, kTileChunks = 32;
+
+__device__ __forceinline__ uint4 load_chunk(uintptr_t c) {
+  return __ldg(reinterpret_cast<const uint4*>(c));
+}
+
+// The site of element 0 of the chunk at address c of a row that starts at
+// `row` (negative for a chunk that starts before the row).
+template <typename IdT>
+__device__ __forceinline__ int chunk_site0(uintptr_t c, const IdT* row) {
+  return static_cast<int>(
+      (static_cast<long long>(c) -
+       static_cast<long long>(reinterpret_cast<uintptr_t>(row))) /
+      static_cast<long long>(sizeof(IdT)));
+}
+
+// Tiles of a row over the sites [lo, hi): its chunks from the one holding
+// site lo (one more than the range's bytes fill, as the range need not
+// start on a chunk boundary), kTileChunks a tile.
+template <typename IdT>
+__device__ __forceinline__ int tiles_per_row(int lo, int hi) {
+  if (hi <= lo) return 0;
+  const int chunks =
+      ((hi - lo) * static_cast<int>(sizeof(IdT)) + kChunk - 1) / kChunk + 1;
+  return (chunks + kTileChunks - 1) / kTileChunks;
+}
+
+// Warp-wide: adds the warp's partial sums r of slot k into the slots' sums
+// (atomics: several warps may score tiles of one slot; the sums are exact,
+// so their order does not matter).
+__device__ __forceinline__ void flush_slot(const Score& r, const SlotSums& acc,
+                                           int k) {
+  const double a0 = warp_sum(r.a0), a1 = warp_sum(r.a1);
+  const int f0 = warp_sum(r.f0), f1 = warp_sum(r.f1);
+  const int z0 = warp_sum(r.nz0), z1 = warp_sum(r.nz1);
+  if ((threadIdx.x & 31) == 0) {
+    if (a0 != 0.0) atomicAdd(acc.a0 + k, a0);
+    if (a1 != 0.0) atomicAdd(acc.a1 + k, a1);
+    if (f0) atomicAdd(acc.f0 + k, f0);
+    if (f1) atomicAdd(acc.f1 + k, f1);
+    if (z0) atomicAdd(acc.nz0 + k, z0);
+    if (z1) atomicAdd(acc.nz1 + k, z1);
+  }
+}
+
+// Bit j set where element j of a chunk holds a non-negative id (16 bits
+// for int8 ids, 4 for int32).
+template <typename IdT>
+__device__ __forceinline__ uint32_t present_mask(const uint4& v) {
+  const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+  uint32_t m = 0;
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    if constexpr (sizeof(IdT) == 1) {
+      const uint32_t t = ~w[q] & 0x80808080u;  // the sign bits, inverted
+      m |= (((t >> 7) | (t >> 14) | (t >> 21) | (t >> 28)) & 0xfu) << (4 * q);
+    } else {
+      m |= (static_cast<int32_t>(w[q]) >= 0 ? 1u : 0u) << q;
+    }
+  }
+  return m;
+}
+
+// Element j of a chunk whose words are w0..w3.
+template <typename IdT>
+__device__ __forceinline__ int chunk_element(uint32_t w0, uint32_t w1,
+                                             uint32_t w2, uint32_t w3,
+                                             int j) {
+  if constexpr (sizeof(IdT) == 1) {
+    const uint32_t w = (j & 8) ? ((j & 4) ? w3 : w2) : ((j & 4) ? w1 : w0);
+    return static_cast<int>(static_cast<int8_t>((w >> (8 * (j & 3))) & 0xffu));
+  } else {
+    const uint32_t w = (j & 2) ? ((j & 1) ? w3 : w2) : ((j & 1) ? w1 : w0);
+    return static_cast<int>(w);
+  }
+}
+
+// Warp-wide: scores the (slot, tile) pairs [p0, p1) of a lane whose NC
+// candidate rows of S ids start at `rows`, T tiles a slot (pair p is tile
+// p % T of slot p / T), into the slots' sums. Each lane loads its chunk of
+// the next pair before it scores the current one, so that two loads are in
+// flight. A read holds a mer at few sites, so the present ids of a tile
+// are dealt out to the lanes 32 at a time (each lane finds the owner of
+// its entry by a binary search over the lanes' running counts, then takes
+// the element from the owner's chunk by shuffles): the table and sums are
+// read, and the ratios taken, in full warps. With `bar` set, the first
+// chunk's load is issued before the wait for the table's bulk copy.
+template <typename IdT>
+__device__ __forceinline__ void score_pairs(const IdT* rows, int S, int lo,
+                                            int hi, int T, int p0, int p1,
+                                            const TableView& tv, int D,
+                                            const SlotSums& acc,
+                                            uint64_t* bar) {
+  const int lane = threadIdx.x & 31;
+  // this lane's chunk of tile j of slot k, or 0 when it lies past the range
+  auto chunk_of = [&](int k, int j) -> uintptr_t {
+    const IdT* row = rows + static_cast<size_t>(k) * S;
+    const uintptr_t c =
+        (reinterpret_cast<uintptr_t>(row + lo) & ~static_cast<uintptr_t>(15)) +
+        static_cast<uintptr_t>(j * kTileChunks + lane) * kChunk;
+    return c < reinterpret_cast<uintptr_t>(row + hi) ? c : 0;
+  };
+  int kn = p0 < p1 ? p0 / T : 0, jn = p0 - kn * T;  // the next pair's
+  uintptr_t c_next = p0 < p1 ? chunk_of(kn, jn) : 0;
+  uint4 v_next = c_next ? load_chunk(c_next) : make_uint4(0, 0, 0, 0);
+  if (bar) mbar_wait(bar, 0);
+  Score r{0.0, 0.0, 0, 0, 0, 0};
+  int k = -1;
+  for (int p = p0; p < p1; ++p) {
+    const int kp = kn;  // this pair's slot
+    const uintptr_t c = c_next;
+    const uint4 v = v_next;
+    if (++jn == T) {
+      jn = 0;
+      ++kn;
+    }
+    if (p + 1 < p1) {
+      c_next = chunk_of(kn, jn);
+      if (c_next) v_next = load_chunk(c_next);
+    }
+    if (kp != k) {
+      if (k >= 0) flush_slot(r, acc, k);
+      r = Score{0.0, 0.0, 0, 0, 0, 0};
+      k = kp;
+    }
+    // this lane's present elements, and the running count over the lanes
+    const uint32_t m = c ? present_mask<IdT>(v) : 0u;
+    const int n = __popc(m);
+    int incl = n;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int x = __shfl_up_sync(kFull, incl, o);
+      if (lane >= o) incl += x;
+    }
+    const int total = __shfl_sync(kFull, incl, 31);
+    const int excl = incl - n;
+    const int s0 = c ? chunk_site0(c, rows + static_cast<size_t>(kp) * S) : 0;
+    for (int base = 0; base < total; base += 32) {
+      const int e = base + lane;  // the entry this lane scores
+      int o = 0;                  // its owner: lanes whose count is <= e
+#pragma unroll
+      for (int step = 16; step > 0; step >>= 1)
+        if (__shfl_sync(kFull, incl, o + step - 1) <= e) o += step;
+      const int oe = __shfl_sync(kFull, excl, o);
+      const uint32_t om = __shfl_sync(kFull, m, o);
+      const uint32_t w0 = __shfl_sync(kFull, v.x, o);
+      const uint32_t w1 = __shfl_sync(kFull, v.y, o);
+      const uint32_t w2 = __shfl_sync(kFull, v.z, o);
+      const uint32_t w3 = __shfl_sync(kFull, v.w, o);
+      const int os0 = __shfl_sync(kFull, s0, o);
+      if (e < total) {
+        const int j = static_cast<int>(__fns(om, 0, e - oe + 1));
+        score_at(r, chunk_element<IdT>(w0, w1, w2, w3, j), os0 + j, lo, hi,
+                 tv, D);
+      }
+    }
+  }
+  if (k >= 0) flush_slot(r, acc, k);
 }
 
 }  // namespace pomfret

@@ -23,11 +23,13 @@
 //    over the seeded rows, sixteen rows' ids loaded at once; counts are
 //    small integers, exact in f32), so the (G,R,S) temporaries of
 //    _seed_count_table_b never reach device memory;
-//  - the count table, the site sums and the candidate rows live in dynamic
-//    shared memory where they fit (the opt-in maximum; at the bench shape
-//    two blocks share an SM, so all 256 lanes are resident in one wave); a
-//    buffer that does not fit stays in a per-lane global buffer, reached
-//    through the same generic pointer, so one code path takes every shape;
+//  - the slot arrays (score partials, member lists, slot and fill lists:
+//    244 bytes a row slot), the count table, the site sums and the
+//    candidate rows live in dynamic shared memory where they fit (the
+//    opt-in maximum; at the bench shape two blocks share an SM, so all 256
+//    lanes are resident in one wave); a buffer that does not fit stays in a
+//    per-lane global buffer, reached through the same generic pointer, so
+//    one code path takes every shape and every nc_cap;
 //  - the candidate set is kept incrementally, as in the Pallas kernel: a
 //    commit frees the winner's slot, a failure drops the members below the
 //    new q_last, and the next member (the first untagged read at or after
@@ -90,35 +92,47 @@ constexpr uint8_t kUntagged = 1, kHasMmr = 2, kSeed = 4, kHap1 = 8;
 // seed rows whose ids a thread loads at once
 constexpr int kSeedRows = 16;
 
-// placement bits: which per-lane buffers live in shared memory
-constexpr int kSumsShared = 1, kTableShared = 2, kRowsShared = 4;
-
-// Byte offsets into the dynamic shared memory of one block. NS = nc_cap + 1
-// row slots: up to n_slots members and one row in flight.
-struct Layout {
-  unsigned bar, acc, lt, lists, nv, red, busy, fill, rowf, sums, table, rows,
-      total;
+// Byte offsets of the slot arrays of one lane, from the start of their
+// region (in shared memory, or the lane's part of a global buffer). NS =
+// nc_cap + 1 row slots: up to n_slots members and one row in flight.
+struct SlotLayout {
+  unsigned acc, lt, lists, busy, fill, total;
 };
 
-__host__ __device__ inline unsigned align_up(unsigned x, unsigned a) {
-  return (x + a - 1) / a * a;
+__host__ __device__ inline SlotLayout slot_layout(unsigned NS) {
+  SlotLayout L;
+  unsigned o = 0;
+  L.acc = o;   o += kWarps * 2 * NS * 8;      // [warp][hap][member] f64
+  L.lt = o;    o += kWarps * 2 * NS * 4;      // [warp][hap][member] l_total
+  L.lists = o; o += 2 * kFields * NS * 4;     // [parity][field][member]
+  L.busy = o;  o += NS * 4;                   // slot in use (warp 0)
+  L.fill = o;  o += 2 * NS * 4;               // rows and slots found (warp 0)
+  L.total = align_up(o, 16);
+  return L;
 }
+
+// Byte offsets into the dynamic shared memory of one block; a buffer whose
+// placement bit (kSlotsShared, kSumsShared, kTableShared, kRowsShared) is
+// clear takes no room there.
+struct Layout {
+  unsigned bar, nv, red, rowf, slots, sums, table, rows, total;
+  SlotLayout sl;
+};
 
 __host__ __device__ inline Layout loop_layout(int R, int S, int D,
                                              int nc_cap, int id_bytes,
                                              int place) {
   const unsigned NS = static_cast<unsigned>(nc_cap) + 1;
   Layout L;
+  L.sl = slot_layout(NS);
   unsigned o = 0;
   L.bar = o;   o += 16;                       // the mbarrier
-  L.acc = o;   o += kWarps * 2 * NS * 8;      // [warp][hap][member] f64
-  L.lt = o;    o += kWarps * 2 * NS * 4;      // [warp][hap][member] l_total
-  L.lists = o; o += 2 * kFields * NS * 4;     // [parity][field][member]
   L.nv = o;    o += 2 * 4;                    // [parity] member count
   L.red = o;   o += 2 * kWarps * 4;           // range partials per warp
-  L.busy = o;  o += NS * 4;                   // slot in use (warp 0)
-  L.fill = o;  o += 2 * NS * 4;               // rows and slots found (warp 0)
   L.rowf = o;  o += align_up(R, 16);          // per-row flags (kUntagged...)
+  o = align_up(o, 16);
+  L.slots = o;
+  if (place & kSlotsShared) o += L.sl.total;
   o = align_up(o, 128);
   L.sums = o;
   if (place & kSumsShared) o += 2u * S * 4;
@@ -140,6 +154,7 @@ struct LoopArgs {
   const int32_t* hp_init;   // (G, R)
   float* cnt_g;             // (G, 2D, S) when the table is not shared
   float* sums_g;            // (G, 2, S) when the sums are not shared
+  unsigned char* slots_g;   // (G, L.sl.total) when the slots are not shared
   int32_t* hp_out;          // (G, R)
   int32_t* stats;           // (G, 8)
   float* table_out;         // (G, 2D, S) or null
@@ -215,16 +230,19 @@ __global__ void __launch_bounds__(kThreads, 2) loop_kernel(const LoopArgs a) {
   const float covf = static_cast<float>(cov);
 
   uint64_t* bar = reinterpret_cast<uint64_t*>(smem + L.bar);
-  double* acc = reinterpret_cast<double*>(smem + L.acc);  // score partials
-  int* lt = reinterpret_cast<int*>(smem + L.lt);
+  unsigned char* sb = (a.place & kSlotsShared)
+                          ? smem + L.slots
+                          : a.slots_g + static_cast<size_t>(g) * L.sl.total;
+  double* acc = reinterpret_cast<double*>(sb + L.sl.acc);  // score partials
+  int* lt = reinterpret_cast<int*>(sb + L.sl.lt);
   double* acc_w = acc + warp * 2 * NS;  // this warp's
   int* lt_w = lt + warp * 2 * NS;
-  int* lists = reinterpret_cast<int*>(smem + L.lists);
+  int* lists = reinterpret_cast<int*>(sb + L.sl.lists);
   int* nvs = reinterpret_cast<int*>(smem + L.nv);
   int* fbw = reinterpret_cast<int*>(smem + L.red);
   int* lnbw = fbw + kWarps;
-  int* busy = reinterpret_cast<int*>(smem + L.busy);
-  int* fill_rows = reinterpret_cast<int*>(smem + L.fill);
+  int* busy = reinterpret_cast<int*>(sb + L.sl.busy);
+  int* fill_rows = reinterpret_cast<int*>(sb + L.sl.fill);
   int* fill_slots = fill_rows + NS;
   uint8_t* rowf = smem + L.rowf;
   float* sum0 = (a.place & kSumsShared)
@@ -697,56 +715,42 @@ __global__ void __launch_bounds__(kThreads, 2) loop_kernel(const LoopArgs a) {
   clk.store();
 }
 
-int optin_bytes(int* out) {
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(out, cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                               dev);
-  return static_cast<int>(e);
-}
-
 template <typename IdT>
 int launch(const LoopArgs& a, int G, cudaStream_t st) {
-  // above 48 KB a launch needs the opt-in, set once for each instance
-  static bool opted = false;
-  if (!opted) {
-    int optin = 0;
-    int rc = optin_bytes(&optin);
-    if (rc == 0)
-      rc = static_cast<int>(cudaFuncSetAttribute(
-          loop_kernel<IdT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-          optin));
-    if (rc != 0) return rc;
-    opted = true;
-  }
+  static std::atomic<unsigned long long> opted{0};  // devices, by bit
+  const int rc = allow_optin(loop_kernel<IdT>, opted);
+  if (rc != 0) return rc;
   loop_kernel<IdT><<<G, kThreads, a.L.total, st>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// Which buffers of a lane go to shared memory at this shape: the sums, then
-// the count table, then the candidate rows, each while the block's total
-// fits the opt-in maximum of the current device. Writes the kSumsShared |
-// kTableShared | kRowsShared bits and the block's dynamic shared memory;
-// returns a CUDA error code (0 on success).
+// Which buffers of a lane go to shared memory at this shape: the slot
+// arrays (score partials, member lists, slot and fill lists), then the
+// sums, then the count table, then the candidate rows, each while the
+// block's total fits the opt-in maximum of the current device. Writes the
+// kSlotsShared | kSumsShared | kTableShared | kRowsShared bits, the block's
+// dynamic shared memory and the bytes of one lane's slot arrays; returns a
+// CUDA error code (0 on success).
 extern "C" int pomfret_loop_plan(int id_bytes, int R, int S, int D,
-                                 int nc_cap, int* place, int* smem_bytes) {
+                                 int nc_cap, int* place, int* smem_bytes,
+                                 int* slot_bytes) {
   int optin = 0;
   const int rc = optin_bytes(&optin);
   if (rc != 0) return rc;
-  const int bits[3] = {kSumsShared, kTableShared, kRowsShared};
+  const int bits[4] = {kSlotsShared, kSumsShared, kTableShared, kRowsShared};
   int p = 0;
   for (int b : bits)
     if (loop_layout(R, S, D, nc_cap, id_bytes, p | b).total <=
         static_cast<unsigned>(optin))
       p |= b;
-  const unsigned total = loop_layout(R, S, D, nc_cap, id_bytes, p).total;
-  if (total > static_cast<unsigned>(optin))
+  const Layout L = loop_layout(R, S, D, nc_cap, id_bytes, p);
+  if (L.total > static_cast<unsigned>(optin))
     return static_cast<int>(cudaErrorInvalidValue);
   *place = p;
-  *smem_bytes = static_cast<int>(total);
+  *smem_bytes = static_cast<int>(L.total);
+  *slot_bytes = static_cast<int>(L.sl.total);
   return 0;
 }
 
@@ -754,11 +758,11 @@ extern "C" int pomfret_loop_plan(int id_bytes, int R, int S, int D,
 extern "C" int pomfret_loop_launch(int id_bytes, const void* ids,
                                    const void* hm, const void* seed_ok,
                                    const void* scal, const void* hp_init,
-                                   void* cnt, void* sums, void* hp_out,
-                                   void* stats, void* table_out,
-                                   void* phase_cycles, int G, int R, int S,
-                                   int D, int nc_cap, int place, int bulk,
-                                   void* stream) {
+                                   void* cnt, void* sums, void* slots,
+                                   void* hp_out, void* stats,
+                                   void* table_out, void* phase_cycles,
+                                   int G, int R, int S, int D, int nc_cap,
+                                   int place, int bulk, void* stream) {
   if (G <= 0) return 0;
   const LoopArgs a{ids,
                    static_cast<const uint8_t*>(hm),
@@ -767,6 +771,7 @@ extern "C" int pomfret_loop_launch(int id_bytes, const void* ids,
                    static_cast<const int32_t*>(hp_init),
                    static_cast<float*>(cnt),
                    static_cast<float*>(sums),
+                   static_cast<unsigned char*>(slots),
                    static_cast<int32_t*>(hp_out),
                    static_cast<int32_t*>(stats),
                    static_cast<float*>(table_out),

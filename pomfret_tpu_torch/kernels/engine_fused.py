@@ -218,12 +218,67 @@ def _launch(dev, fn_name: str, *args):
 
 _IDS = (torch.int8, torch.int32)
 
+# placement bits of the kernels' plans (csrc/common.cuh Place): the
+# per-lane buffers a block keeps in shared memory
+SUMS_SHARED, TABLE_SHARED, ROWS_SHARED, SLOTS_SHARED = 1, 2, 4, 8
+_PLANS: dict = {}
+
+
+def _plan(dev, fn_name: str, *shape):
+    """(placement bits, dynamic shared bytes of a block, bytes of one
+    lane's slot arrays) of a kernel at this shape on `dev`, from the kernel
+    library's own layout (`fn_name`: pomfret_loop_plan or
+    pomfret_step_plan, `shape` its integer arguments)."""
+    key = (dev.index, fn_name) + shape
+    if key not in _PLANS:
+        from ._build import get_lib
+        lib = get_lib()
+        out = [ctypes.c_int() for _ in range(3)]
+        with torch.cuda.device(dev):
+            rc = getattr(lib, fn_name)(*shape,
+                                       *(ctypes.byref(o) for o in out))
+        if rc != 0:
+            raise RuntimeError(f"{fn_name} failed: "
+                               f"{lib.pomfret_error_string(rc).decode()} "
+                               f"({rc}) at {shape}")
+        _PLANS[key] = tuple(o.value for o in out)
+    return _PLANS[key]
+
+
+def _count_placement(counts: dict, place: int, everything: int, G: int):
+    """Adds G lanes to `counts` by placement: "shared" (every buffer in
+    `everything` shared), "mixed" or "global"; and by where the slot
+    arrays live, "slots_shared" or "slots_global"."""
+    counts["shared" if place == everything else "mixed"
+           if place & everything else "global"] += G
+    counts["slots_shared" if place & SLOTS_SHARED else "slots_global"] += G
+
+
+def _placements():
+    return {k: 0 for k in ("shared", "mixed", "global", "slots_shared",
+                           "slots_global")}
+
+
+def _scratch(place: int, bit: int, nbytes: int, dev):
+    """A per-lane global buffer of `nbytes` in all for a buffer whose
+    placement bit is clear, else None (it lives in shared memory)."""
+    if place & bit:
+        return None
+    return torch.empty(nbytes, dtype=torch.uint8, device=dev)
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
 
 def score_candidates_batch(cnt, sums, cids, min_i, max_i, *, D: int):
     """(G, 8, NC) score rows (see score_plain). CUDA tensors: launches
     csrc/score_kernel.cu on the current stream, counted in
-    `score_candidates_batch.launches`. CPU tensors: score_plain. Any other
-    device raises; so does a build or launch failure."""
+    `score_candidates_batch.launches`, its lanes by where their buffers
+    live in `.placements` (see _count_placement: the slots' sums, the
+    sums and the table slice in shared memory, or some in global memory).
+    CPU tensors: score_plain. Any other device raises; so does a build or
+    launch failure."""
     dev = cids.device
     if dev.type == "cpu":
         return score_plain(cnt, sums, cids, min_i, max_i, D)
@@ -235,25 +290,36 @@ def score_candidates_batch(cnt, sums, cids, min_i, max_i, *, D: int):
     _check("sums", sums, (torch.float32,), (G, 2, S), dev)
     _check("min_i", min_i, (torch.int32,), (G,), dev)
     _check("max_i", max_i, (torch.int32,), (G,), dev)
+    allowed = SLOTS_SHARED
+    # bulk copies of the table and sums rows need 16-byte aligned rows
+    if S % 4 == 0 and cnt.data_ptr() % 16 == 0 and sums.data_ptr() % 16 == 0:
+        allowed |= SUMS_SHARED | TABLE_SHARED
+    place, _, slot_bytes = _plan(dev, "pomfret_step_plan", NC, S, D, allowed)
+    slots = _scratch(place, SLOTS_SHARED, G * slot_bytes, dev)
     out = torch.empty((G, 8, NC), dtype=torch.float32, device=dev)
     _launch(dev, "pomfret_score_launch", cids.element_size(), cnt.data_ptr(),
             sums.data_ptr(), cids.data_ptr(), min_i.data_ptr(),
-            max_i.data_ptr(), out.data_ptr(), G, NC, S, D)
+            max_i.data_ptr(), out.data_ptr(), _ptr(slots), G, NC, S, D,
+            place)
     score_candidates_batch.launches += 1
+    _count_placement(score_candidates_batch.placements, place,
+                     SLOTS_SHARED | SUMS_SHARED | TABLE_SHARED, G)
     return out
 
 
 score_candidates_batch.launches = 0
-
-MAX_NC = 1024  # the score-commit kernel keeps 4 words per slot in shared memory
+score_candidates_batch.placements = _placements()
 
 
 def step_fused2(scal, cmeta, cids, cnt, hp, *, D: int):
     """One greedy iteration of every lane (see score_commit_plain); cnt
     and hp are updated in place and returned with the flags. CUDA tensors:
     launches csrc/score_commit_kernel.cu on the current stream, counted in
-    `step_fused2.launches`. CPU tensors: score_commit_plain. Any other
-    device raises; so does a build or launch failure."""
+    `step_fused2.launches`, its lanes by where their buffers live in
+    `.placements` (see _count_placement: the slots' sums, the sums and the
+    count table in shared memory, or some in global memory). CPU tensors:
+    score_commit_plain. Any other device raises; so does a build or launch
+    failure."""
     dev = cids.device
     if dev.type == "cpu":
         return score_commit_plain(scal, cmeta, cids, cnt, hp, D)
@@ -261,24 +327,31 @@ def step_fused2(scal, cmeta, cids, cnt, hp, *, D: int):
         raise ValueError(f"step_fused2: unsupported device {dev}")
     G, NC, S = cids.shape
     R = hp.shape[1]
-    if not 0 < NC <= MAX_NC:
-        raise ValueError(f"NC={NC} outside (0, {MAX_NC}]")
     _check("cids", cids, _IDS, (G, NC, S), dev)
     _check("scal", scal, (torch.int32,), (G, 8), dev)
     _check("cmeta", cmeta, (torch.int32,), (G, 4, NC), dev)
     _check("cnt", cnt, (torch.float32,), (G, 2 * D, S), dev)
     _check("hp", hp, (torch.int32,), (G, R), dev)
+    allowed = SLOTS_SHARED | SUMS_SHARED
+    # one bulk copy of each lane's table needs 16-byte aligned tables
+    if (D * S) % 2 == 0 and cnt.data_ptr() % 16 == 0:
+        allowed |= TABLE_SHARED
+    place, _, slot_bytes = _plan(dev, "pomfret_step_plan", NC, S, D, allowed)
+    sums = _scratch(place, SUMS_SHARED, G * 2 * S * 4, dev)
+    slots = _scratch(place, SLOTS_SHARED, G * slot_bytes, dev)
     flags = torch.empty((G, 8), dtype=torch.int32, device=dev)
-    sums = torch.empty((G, 2, S), dtype=torch.float32, device=dev)  # scratch
     _launch(dev, "pomfret_score_commit_launch", cids.element_size(),
             scal.data_ptr(), cmeta.data_ptr(), cids.data_ptr(),
-            cnt.data_ptr(), hp.data_ptr(), flags.data_ptr(), sums.data_ptr(),
-            G, NC, S, D, R)
+            cnt.data_ptr(), hp.data_ptr(), flags.data_ptr(), _ptr(sums),
+            _ptr(slots), G, NC, S, D, R, place)
     step_fused2.launches += 1
+    _count_placement(step_fused2.placements, place,
+                     SLOTS_SHARED | SUMS_SHARED | TABLE_SHARED, G)
     return cnt, hp, flags
 
 
 step_fused2.launches = 0
+step_fused2.placements = _placements()
 
 
 # ---------------------------------------------------------------------------

@@ -28,20 +28,13 @@ with this version bit for bit.
 """
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
-from .engine_fused import (_candidates_b, _check, _launch, _range_from_seed_b,
+from .engine_fused import (ROWS_SHARED, SLOTS_SHARED, SUMS_SHARED,
+                           TABLE_SHARED, _candidates_b, _check,
+                           _count_placement, _launch, _placements, _plan,
+                           _ptr, _range_from_seed_b, _scratch,
                            _seed_count_table_b, _stats)
-
-# the kernel keeps ~61 words per candidate slot in shared memory (its
-# warps' score partials, the member lists), 125 KiB at 512
-MAX_NC_CAP = 512
-
-# placement bits of pomfret_loop_plan: the lane buffers in shared memory
-SUMS_SHARED, TABLE_SHARED, ROWS_SHARED = 1, 2, 4
-_PLANS: dict = {}
 
 
 def loop_plain(ids, has_mmr, hp_init, seed_ok, n_reads, n_sites, q_break,
@@ -165,25 +158,6 @@ def loop_plain(ids, has_mmr, hp_init, seed_ok, n_reads, n_sites, q_break,
     return hp, _stats(it, q_last, failed, ncom)
 
 
-def _plan(dev, id_bytes: int, R: int, S: int, D: int, nc_cap: int):
-    """(placement bits, dynamic shared bytes of a block) of this shape on
-    `dev`, from the kernel library's own layout (pomfret_loop_plan)."""
-    key = (dev.index, id_bytes, R, S, D, nc_cap)
-    if key not in _PLANS:
-        from ._build import get_lib
-        lib = get_lib()
-        place, smem = ctypes.c_int(), ctypes.c_int()
-        with torch.cuda.device(dev):
-            rc = lib.pomfret_loop_plan(id_bytes, R, S, D, nc_cap,
-                                       ctypes.byref(place), ctypes.byref(smem))
-        if rc != 0:
-            raise RuntimeError(f"pomfret_loop_plan failed: "
-                               f"{lib.pomfret_error_string(rc).decode()} "
-                               f"({rc}) at S={S}, D={D}, nc_cap={nc_cap}")
-        _PLANS[key] = (place.value, smem.value)
-    return _PLANS[key]
-
-
 def run_batch_fused3(ids, has_mmr, hp_init, seed_ok, n_reads, n_sites,
                      q_break, min0, max0, cov, n_cand, max_iters,
                      D: int, nc_cap: int, *, phase_cycles=None,
@@ -193,8 +167,10 @@ def run_batch_fused3(ids, has_mmr, hp_init, seed_ok, n_reads, n_sites,
     CUDA tensors: launches loop_kernel.cu once on the current stream (the
     kernel seeds its count table itself); the launch is counted in
     `run_batch_fused3.launches`, its lanes by where their buffers live in
-    `.placements` ("shared": table, sums and candidate rows in shared
-    memory; "mixed": some in global memory; "global": none shared) and by
+    `.placements` ("shared": slot arrays, table, sums and candidate rows in
+    shared memory; "mixed": some in global memory; "global": none shared;
+    and "slots_shared" or "slots_global" by where the slot arrays live,
+    global past ~950 row slots) and by
     how candidate rows arrive in `.row_routes` ("bulk": cp.async.bulk,
     "loads": ordinary loads, when a row's bytes are not a multiple of 16;
     "global": rows read in place). CPU tensors: loop_plain. Any other
@@ -215,8 +191,6 @@ def run_batch_fused3(ids, has_mmr, hp_init, seed_ok, n_reads, n_sites,
     if dev.type != "cuda":
         raise ValueError(f"run_batch_fused3: unsupported device {dev}")
     G, R, S = ids.shape
-    if not 0 < nc_cap <= MAX_NC_CAP:
-        raise ValueError(f"nc_cap={nc_cap} outside (0, {MAX_NC_CAP}]")
     _check("ids", ids, (torch.int8, torch.int32), (G, R, S), dev)
     for name, t in (("has_mmr", has_mmr), ("seed_ok", seed_ok)):
         _check(name, t, (torch.bool,), (G, R), dev)
@@ -230,35 +204,30 @@ def run_batch_fused3(ids, has_mmr, hp_init, seed_ok, n_reads, n_sites,
         _check("table_out", table_out, (torch.float32,), (G, 2 * D, S), dev)
 
     ib = ids.element_size()
-    place, _ = _plan(dev, ib, R, S, D, nc_cap)
-    f32 = torch.float32
-    cnt = None if place & TABLE_SHARED else \
-        torch.empty((G, 2 * D, S), dtype=f32, device=dev)
-    sums = None if place & SUMS_SHARED else \
-        torch.empty((G, 2, S), dtype=f32, device=dev)
+    place, _, slot_bytes = _plan(dev, "pomfret_loop_plan", ib, R, S, D,
+                                 nc_cap)
+    cnt = _scratch(place, TABLE_SHARED, G * 2 * D * S * 4, dev)
+    sums = _scratch(place, SUMS_SHARED, G * 2 * S * 4, dev)
+    slots = _scratch(place, SLOTS_SHARED, G * slot_bytes, dev)
     rows_shared = bool(place & ROWS_SHARED)
     # a bulk copy moves 16-byte multiples between 16-byte aligned addresses
     bulk = rows_shared and (S * ib) % 16 == 0 and ids.data_ptr() % 16 == 0
     hp = torch.empty((G, R), dtype=torch.int32, device=dev)
     stats = torch.empty((G, 8), dtype=torch.int32, device=dev)
-
-    def ptr(t):
-        return None if t is None else t.data_ptr()
     _launch(dev, "pomfret_loop_launch", ib, ids.data_ptr(),
             has_mmr.data_ptr(), seed_ok.data_ptr(), scal.data_ptr(),
-            hp_init.data_ptr(), ptr(cnt), ptr(sums), hp.data_ptr(),
-            stats.data_ptr(), ptr(table_out), ptr(phase_cycles), G, R, S, D,
-            nc_cap, place, int(bulk))
+            hp_init.data_ptr(), _ptr(cnt), _ptr(sums), _ptr(slots),
+            hp.data_ptr(), stats.data_ptr(), _ptr(table_out),
+            _ptr(phase_cycles), G, R, S, D, nc_cap, place, int(bulk))
     run_batch_fused3.launches += 1
-    everything = SUMS_SHARED | TABLE_SHARED | ROWS_SHARED
-    run_batch_fused3.placements[
-        "shared" if place == everything else "mixed" if place else
-        "global"] += G
+    _count_placement(run_batch_fused3.placements, place,
+                     SLOTS_SHARED | SUMS_SHARED | TABLE_SHARED | ROWS_SHARED,
+                     G)
     run_batch_fused3.row_routes[
         "bulk" if bulk else "loads" if rows_shared else "global"] += G
     return hp, stats
 
 
 run_batch_fused3.launches = 0
-run_batch_fused3.placements = {"shared": 0, "mixed": 0, "global": 0}
+run_batch_fused3.placements = _placements()
 run_batch_fused3.row_routes = {"bulk": 0, "loads": 0, "global": 0}

@@ -667,6 +667,34 @@ def fuzz_args(trial: int):
     return args, D, nc_cap
 
 
+def wide_args(n_cand: int, G: int = 4, S: int = 64, D: int = 4,
+              max_iters: int = 24):
+    """A batch whose candidate set is wider than any fuzz trial's: nc_cap =
+    round_up(n_cand, 16) slots (`methphase -n 600` packs 608), R = nc_cap +
+    96 rows of random ids in [-1, D) (has_mmr 0.9), the first 8 rows seeds;
+    lane 0 dead, the others hold every row, so each iteration scores n_cand
+    candidates; max_iters caps the loop. Returns (numpy args in the
+    engines' order, D, nc_cap)."""
+    rng = np.random.default_rng(2000 + n_cand)
+    nc_cap = ((n_cand + 15) // 16) * 16
+    R = nc_cap + 96
+    ids = rng.integers(-1, D, size=(G, R, S)).astype(np.int8)
+    has_mmr = rng.random((G, R)) < 0.9
+    ids[~has_mmr] = -1
+    hp_init = np.full((G, R), 2, np.int32)
+    hp_init[:, :8] = rng.integers(0, 2, size=(G, 8))
+    n_reads = np.full(G, R, np.int32)
+    n_reads[0] = 0                       # dead lane
+    n_sites = rng.integers(S // 2, S + 1, size=G).astype(np.int32)
+    min0 = rng.integers(0, 4, size=G).astype(np.int32)
+    max0 = (min0 + rng.integers(0, 8, size=G)).astype(np.int32)
+    args = (ids, has_mmr, hp_init, hp_init <= 1, n_reads, n_sites,
+            n_reads.copy(), min0, max0,
+            rng.integers(1, 6, size=G).astype(np.int32),
+            np.full(G, n_cand, np.int32), np.full(G, max_iters, np.int32))
+    return args, D, nc_cap
+
+
 # Crafted lanes whose first pick hinges on how the f32 ratios cnt/sum are
 # summed. Each site is (c, s, h): c hap-0 seed reads carry mer id 0 there,
 # s - c carry id 1, h hap-1 seed reads carry id 2; every candidate carries

@@ -34,7 +34,7 @@ from pomfret_tpu.testing import SynthConfig, make_two_block_scenario
 from pomfret_tpu_torch.kernels import engine_fused3 as tf3
 from pomfret_tpu_torch.testing import (CRAFTED_LANES, N_FUZZ,
                                        NEAR_TIE_LANES, crafted_args,
-                                       fuzz_args, near_tie_args)
+                                       fuzz_args, near_tie_args, wide_args)
 
 torch.set_num_threads(1)
 
@@ -78,6 +78,22 @@ def test_loop_plain_fuzz(trial):
                                       jitted_entry=trial == 0)
     assert (hv[0] == args[2][0]).all()      # the dead lane is untouched
     assert st[0, 0] == 0 and st[1, 0] > 0
+
+
+@pytest.mark.parametrize("n_cand", [520, 1030])
+def test_loop_plain_wide_nc_cap(n_cand):
+    """nc_cap 528 and 1040, above the 512 the CUDA engine once refused:
+    loop_plain and the wrapper on CPU tensors equal the vmapped XLA
+    engine."""
+    args, D, nc_cap = wide_args(n_cand)
+    assert nc_cap in (528, 1040) and args[4][1] > nc_cap
+    hv = np.asarray(_run_batch_jit(*args, D=D, nc_cap=nc_cap))
+    targs = [torch.from_numpy(np.ascontiguousarray(a)) for a in args]
+    hp, st = tf3.loop_plain(*targs, D=D, nc_cap=nc_cap)
+    assert np.array_equal(hp.numpy(), hv)
+    assert (st.numpy()[1:, 3] > 0).all()          # every live lane committed
+    hw, sw = tf3.run_batch_fused3(*targs, D=D, nc_cap=nc_cap)
+    assert torch.equal(hw, hp) and torch.equal(sw, st)
 
 
 def _datas_from(bam, truth):

@@ -18,7 +18,7 @@ from pomfret_tpu_torch.parallel import batch as tb
 from pomfret_tpu_torch.tools import probes as tpr
 from pomfret_tpu_torch.testing import (N_FUZZ_CARD, bench_gap_batch,
                                        checked_step, crafted_args, fuzz_args,
-                                       near_tie_args)
+                                       near_tie_args, wide_args)
 
 pytestmark = pytest.mark.cuda
 
@@ -96,6 +96,20 @@ def test_kernel_placement(cuda, name, placement, route):
     assert tf3.run_batch_fused3.row_routes[route] - r0[route] == G
 
 
+@pytest.mark.parametrize("n_cand,slots", [(512, "slots_shared"),
+                                          (520, "slots_shared"),
+                                          (1030, "slots_global")])
+def test_kernel_wide_nc_cap(cuda, n_cand, slots):
+    """nc_cap 512, 528 and 1040: the slot arrays (244 bytes a row slot)
+    in shared memory while they fit, else in a per-lane global buffer."""
+    args, D, nc_cap = wide_args(n_cand)
+    G = args[0].shape[0]
+    p0 = dict(tf3.run_batch_fused3.placements)
+    _, st = _both(args, D, nc_cap, cuda)
+    assert tf3.run_batch_fused3.placements[slots] - p0[slots] == G
+    assert (st[1:, 3] > 0).all()
+
+
 @pytest.mark.parametrize("name", ["bench", 9])
 def test_kernel_seed_table(cuda, name):
     """At max_iters 0 the kernel's table write-back is the seed table of
@@ -168,6 +182,78 @@ def test_gens_agree_bench_shape(cuda):
     hp, st = _gens_stepwise(tb.batch_args(batch, 2 * batch.shape3[1] + 64),
                             batch.D, batch.nc_cap, cuda)
     assert (hp <= 1).sum() > 0 and (st[:, 3] > 0).all()
+
+
+def test_step_kernels_match_plain_crafted(cuda):
+    args, D, nc_cap, layout = crafted_args()
+    hp, _ = _gens_stepwise(args, D, nc_cap, cuda)
+    g, rows = layout["reuse_tie"]
+    assert hp[g, rows["tie1"]].tolist() == [0]
+
+
+def test_step_kernels_wide_nc(cuda):
+    """NC 1040: every step of both kernels equal to its plain version."""
+    args, D, nc_cap = wide_args(1030)
+    assert nc_cap == 1040
+    _, st = _gens_stepwise(args, D, nc_cap, cuda)
+    assert (st[1:, 3] > 0).all()
+
+
+def test_step_kernels_int32_ids(cuda):
+    """The bench shape with its ids widened to int32 (4 sites a 16-byte
+    load)."""
+    batch, _ = bench_gap_batch(G=64)
+    args = list(tb.batch_args(batch, 2 * batch.shape3[1] + 64))
+    args[0] = args[0].astype(np.int32)
+    hp, _ = _gens_stepwise(args, batch.D, batch.nc_cap, cuda)
+    assert (hp <= 1).sum() > 0
+
+
+def test_step_kernels_slot_sums_global(cuda):
+    """NC 8192: the slots' sums (32 bytes a slot) exceed shared memory, so
+    both kernels keep them in a per-lane global buffer; one step of each
+    equals its plain version."""
+    rng = np.random.default_rng(7)
+    G, NC, S, D, R = 2, 8192, 64, 4, 9000
+    cnt = rng.integers(0, 4, size=(G, 2 * D, S)).astype(np.float32)
+    cids = rng.integers(-1, D, size=(G, NC, S)).astype(np.int8)
+    t = {k: torch.from_numpy(v).to(cuda) for k, v in (("cnt", cnt),
+                                                       ("cids", cids))}
+    sums = t["cnt"].view(G, D, 2, S).sum(dim=1).contiguous()
+    lo = torch.tensor([0, 5], dtype=torch.int32, device=cuda)
+    hi = torch.tensor([S, 40], dtype=torch.int32, device=cuda)
+    kernels = (tf.score_candidates_batch, tf.step_fused2)
+    before = [dict(f.placements) for f in kernels]
+    got = tf.score_candidates_batch(t["cnt"], sums, t["cids"], lo, hi, D=D)
+    assert torch.equal(got, tf.score_plain(t["cnt"], sums, t["cids"], lo,
+                                           hi, D))
+    reads = np.stack([rng.permutation(R)[:NC] for _ in range(G)])
+    cmeta = np.stack([reads, rng.integers(0, 2, size=(G, NC)),
+                      np.ones((G, NC)), np.zeros((G, NC))], 1)
+    scal = np.array([[0, 3, 2, S - 4, 1, 0, 0, 0]] * G)
+    args = [torch.from_numpy(a.astype(np.int32)).to(cuda)
+            for a in (scal, cmeta)] + [t["cids"], t["cnt"],
+                                       torch.full((G, R), 2, dtype=torch.int32,
+                                                  device=cuda)]
+    want = tf.score_commit_plain(*[a.clone() for a in args], D=D)
+    for a, b in zip(tf.step_fused2(*args, D=D), want):
+        assert torch.equal(a, b)
+    for f, p0 in zip(kernels, before):
+        assert f.placements["slots_global"] - p0["slots_global"] == G
+
+
+@pytest.mark.parametrize("name,placement", [
+    ("bench", "shared"),   # table, sums and slots' sums in shared memory
+    (9, "mixed")])         # a 256 KiB table stays in global memory
+def test_step_kernel_placement(cuda, name, placement):
+    args, D, nc_cap = _fixture(name)
+    G = args[0].shape[0]
+    kernels = (tf.score_candidates_batch, tf.step_fused2)
+    before = [(f.launches, dict(f.placements)) for f in kernels]
+    _gens_stepwise(args, D, nc_cap, cuda)
+    for f, (n0, p0) in zip(kernels, before):
+        n = f.launches - n0
+        assert n > 0 and f.placements[placement] - p0[placement] == n * G
 
 
 @pytest.mark.parametrize("gen", ["1", "2"])

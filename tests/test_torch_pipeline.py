@@ -120,6 +120,28 @@ def test_methphase_torch_matches_host(host_runs, tmp_path, monkeypatch,
         assert len(f.read().strip().split("\n")) == 1   # the gap joined
 
 
+def test_methphase_wide_candidate_set(host_runs, tmp_path, monkeypatch):
+    """`-c 100 -n 600` packs nc_cap 608, past the 512 slots the cuda
+    engine once refused: --engine torch writes what --engine host
+    writes."""
+    from pomfret_tpu_torch.parallel import batch as tb
+    caps = []
+
+    def loop(*args, nc_cap, **kw):
+        caps.append(nc_cap)
+        return plain(*args, nc_cap=nc_cap, **kw)
+    plain = tb.loop_plain
+    monkeypatch.setattr(tb, "loop_plain", loop)
+    bam, vcf, _ = host_runs[True]
+    prefixes = [str(tmp_path / eng) for eng in ("host", "torch")]
+    for p, eng in zip(prefixes, ("host", "torch")):
+        assert port_main(["methphase", "-o", p, "--engine", eng,
+                          "--output-tsv", "-c", "100", "-n", "600", "--vcf",
+                          vcf, bam]) == 0
+    assert caps and set(caps) == {608}
+    _assert_same_files(*prefixes, (".mp.vcf", ".mp.gtf", ".mp.tsv"))
+
+
 def test_methphase_host_engine_matches(host_runs, tmp_path):
     """The port's --engine host (its copy of the host oracle) writes what
     the JAX package's does."""
