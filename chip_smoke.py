@@ -81,7 +81,23 @@ Phases, each printing one line:
     gap by gap on the parity scenarios (n_permutations 1, and 5 on each
     chromosome's first gap): decisions and per-read tags equal, and the
     loop kernel's launches, counted from zero, equal to the directions the
-    cuda runs dispatched (run_gap.dispatched).
+    cuda runs dispatched (run_gap.dispatched);
+ 8. processes: `methphase --engine cuda` on the 200-gap dataset in one
+    fresh process, then in two processes of one gloo group sharing this
+    card (POMFRET_COORDINATOR on a free loopback port,
+    POMFRET_NUM_PROCS=2, POMFRET_PROC_ID=0|1; testing.run_processes):
+    all exit 0, process 0's .mp.vcf/.mp.gtf are byte-identical to phase
+    4's, each of the two processes launched the loop kernel; then `report
+    --engine cuda` in two processes, .report.tsv == phase 6's; prints each
+    process's imports, wall and stage seconds, gaps, loop-kernel launches
+    and all-gather seconds and bytes;
+ 9. mesh: make_gap_mesh([cuda:0, cuda:0]) splits every batch into two
+    shards on this card, each on a stream of its own: run_gap_batch with
+    and without it on the fuzz, wide and bench-shape batches (hp and stats
+    equal, one loop-kernel launch a shard), and methphase's
+    run_jobs_batched call over the scale dataset run again with the mesh
+    (decisions and tag maps equal; counted from zero); with several GPUs,
+    production_mesh too; prints the times.
 The script then checks that no jax, pomfret_tpu or pomfret_tpu.* module
 was loaded. Then a JSON line of the kernels (with each one's bound: the
 larger of its bytes over the HBM rate and its operations over the f32
@@ -722,6 +738,121 @@ def phase_profile_flag(d, bam, vcf):
                 loop_kernel_events=n_loop)
 
 
+def phase_processes(p_c, base, d3, rargs):
+    """Several processes: `methphase --engine cuda` in two processes of
+    one gloo group on this card (testing.run_processes) on the scale
+    dataset, process 0's .mp.vcf/.mp.gtf against phase 4's one-process
+    run (`p_c`), and in one fresh process the same way, for its walls;
+    then `report --engine cuda` in two processes on phase 6's scenario
+    against its one-process .report.tsv (<d3>/cuda3). Each process reports
+    its imports, wall, stage seconds, gaps, launches and all-gathers."""
+    from pomfret_tpu_torch.testing import run_processes
+    t0 = time.perf_counter()
+    one = run_processes(["methphase", "-o", p_c + "_one", "--engine", "cuda",
+                         *base], 1, timeout=600)
+    out = {"one_process": dict(wall_s=time.perf_counter() - t0,
+                               processes=one)}
+    same_outputs(p_c + "_one", p_c, (".mp.vcf", ".mp.gtf"))
+    for name, argv, ref, exts in (
+            ("methphase", ["methphase", "-o", p_c + "_two", "--engine",
+                           "cuda", *base], p_c, (".mp.vcf", ".mp.gtf")),
+            ("report", ["report", "-o", os.path.join(d3, "two"), "--engine",
+                        "cuda", *rargs], os.path.join(d3, "cuda3"),
+             (".report.tsv",))):
+        t0 = time.perf_counter()
+        procs = run_processes(argv, 2, timeout=600)
+        wall = time.perf_counter() - t0
+        for rank, o in enumerate(procs):
+            check(o["loaded"] == [], f"{name} process {rank} loaded "
+                  f"{o['loaded']}")
+            check(o["dist"]["n_allgathers"] > 0,
+                  f"{name} process {rank} gathered nothing: {o['dist']}")
+        same_outputs(argv[2], ref, exts)
+        out[name] = dict(wall_s=wall, processes=procs)
+    for rank, o in enumerate(out["methphase"]["processes"]):
+        check(o["kernel_launches"]["loop_kernel"] > 0 and o["gaps_decided"],
+              f"methphase process {rank} launched no loop kernel: {o}")
+    return out
+
+
+def phase_mesh(dev, base, p_c):
+    """Several devices: make_gap_mesh([cuda:0, cuda:0]) splits each batch
+    into two shards on this card. run_gap_batch with and without the mesh
+    on the fuzz fixtures, the wide ones and the bench-shape batch (gen 3):
+    hp and stats equal, two loop-kernel launches per split batch. Then one
+    `methphase --engine cuda` (no mesh) whose run_jobs_batched call is
+    run again with the mesh: decisions and tag maps equal; the outputs
+    equal phase 4's. Where the process sees several GPUs, production_mesh
+    too. Walls in seconds."""
+    import numpy as np
+    import torch
+    from pomfret_tpu_torch.kernels import engine_fused3 as f3
+    from pomfret_tpu_torch.kernels import engine_torch as et
+    from pomfret_tpu_torch.parallel.batch import (make_gap_mesh,
+                                                  production_mesh,
+                                                  run_gap_batch_async)
+    from pomfret_tpu_torch.testing import (N_FUZZ_CARD, args_batch,
+                                           bench_gap_batch, fuzz_args,
+                                           wide_args)
+
+    meshes = {"two_shards": make_gap_mesh([dev, dev])}
+    if torch.cuda.device_count() > 1:
+        meshes["production"] = production_mesh(torch.device("cuda"))
+    out = {"batch_walls_s": {}, "jobs": {}}
+    batches = [args_batch(*fuzz_args(t)) for t in range(N_FUZZ_CARD)]
+    batches += [args_batch(*wide_args(n)) for n in (520, 1030)]
+    bench, _ = bench_gap_batch(G=256)
+    batches.append((bench, 2 * bench.shape3[1] + 64))
+
+    def timed(batch, max_iters, **kw):
+        n0 = f3.run_batch_fused3.launches
+        t0 = time.perf_counter()
+        res = run_gap_batch_async(batch, max_iters, engine="cuda", **kw)
+        hp = np.asarray(res)
+        return hp, res.stats(), time.perf_counter() - t0, \
+            f3.run_batch_fused3.launches - n0
+
+    for mname, mesh in meshes.items():
+        for k, (batch, max_iters) in enumerate(batches):
+            hp, st, w1, n1 = timed(batch, max_iters, device=dev)
+            hp2, st2, w2, n2 = timed(batch, max_iters, mesh=mesh)
+            check(np.array_equal(hp, hp2) and np.array_equal(st, st2),
+                  f"{mname}: split batch {k} != unsplit (hp or stats)")
+            check((n1, n2) == (1, len(mesh)), f"{mname}: batch {k} launched "
+                  f"the loop kernel {n1} and {n2} times")
+        out["batch_walls_s"][mname] = dict(bench_whole=w1, bench_split=w2)
+
+    real = et.run_jobs_batched
+
+    def both(st, bam, jobs, *a, **kw):
+        """The pipeline's call, then the same call split over each mesh."""
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ref = real(st, bam, jobs, *a, **kw)
+        out["jobs"]["no_mesh_s"] = time.perf_counter() - t0
+        for mname, mesh in meshes.items():
+            n0 = f3.run_batch_fused3.launches
+            t0 = time.perf_counter()
+            got = real(st, bam, jobs, *a, **dict(kw, mesh=mesh))
+            out["jobs"][mname] = dict(
+                wall_s=time.perf_counter() - t0,
+                launches=f3.run_batch_fused3.launches - n0)
+            check(got == ref, f"run_jobs_batched over the {mname} mesh: "
+                  "decisions or tag maps differ")
+        out["jobs"]["gaps"] = sum(len(j["indices"]) for j in jobs)
+        return ref
+
+    os.environ["POMFRET_NO_MESH"] = "1"  # the pipeline's own call: no mesh
+    et.run_jobs_batched = both
+    try:
+        methphase(["-o", p_c + "_mesh", "--engine", "cuda", *base])
+    finally:
+        et.run_jobs_batched = real
+        del os.environ["POMFRET_NO_MESH"]
+    same_outputs(p_c + "_mesh", p_c, (".mp.vcf", ".mp.gtf"))
+    return out
+
+
 def scale_dataset():
     """bench.py's 200-gap scale dataset, cached under .bench_data/ (same key
     as bench.py, so either can reuse the other's copy)."""
@@ -1069,6 +1200,50 @@ def main(argv=()):
         f"dispatched; walls "
         + ", ".join(f"{k} {v:.1f} s" for k, v in rg["walls_s"].items())
         + f"; {card}")
+
+    # 8: two processes of one gloo group on this card
+    report["processes"] = pp = phase_processes(p_c, base, d3, rargs)
+    o1 = pp["one_process"]["processes"][0]
+    say("processes", "methphase --engine cuda in two processes on "
+        f"{n_gaps} gaps: {pp['methphase']['wall_s']:.2f} s (one fresh "
+        f"process: {pp['one_process']['wall_s']:.2f} s, imports "
+        f"{o1['import_s']:.2f} s, wall {o1['wall_s']:.2f} s, window_load "
+        f"{o1['stages'].get('window_load', 0):.2f} s), outputs == phase "
+        "4's; " + "; ".join(
+            f"process {r}: imports {o['import_s']:.2f} s, wall "
+            f"{o['wall_s']:.2f} s (window_load "
+            f"{o['stages'].get('window_load', 0):.2f}, pack "
+            f"{o['stages'].get('pack', 0):.2f}, dispatch "
+            f"{o['stages'].get('dispatch', 0):.2f}, device_wait "
+            f"{o['stages'].get('device_wait', 0):.2f} s), "
+            f"{o['gaps_decided']} gaps, "
+            f"{o['kernel_launches']['loop_kernel']} loop-kernel "
+            f"launches, all-gathers {o['dist']['n_allgathers']} in "
+            f"{o['dist']['allgather_s']:.4f} s, "
+            f"{o['dist']['allgather_bytes']} bytes"
+            for r, o in enumerate(pp["methphase"]["processes"]))
+        + f"; report --engine cuda in two processes "
+        f"{pp['report']['wall_s']:.2f} s, .report.tsv == phase 6's; {card}")
+
+    # 9: two shards of each batch on this card, counted from zero
+    zero_counts()
+    report["mesh"] = mp = phase_mesh(dev, base, p_c)
+    mp["kernel_launches"] = read_counts()
+    check(mp["kernel_launches"]["loop_kernel"] > 0,
+          "the mesh phase launched no loop kernel")
+    say("mesh", "two shards a batch on one card (make_gap_mesh([cuda:0, "
+        "cuda:0])): split == unsplit (hp, stats) on the fuzz, wide and "
+        "bench-shape batches, one loop-kernel launch a shard; bench shape "
+        + "; ".join(f"{m} whole {w['bench_whole'] * 1e3:.2f} ms, split "
+                    f"{w['bench_split'] * 1e3:.2f} ms"
+                    for m, w in mp["batch_walls_s"].items())
+        + f"; run_jobs_batched on {mp['jobs']['gaps']} gaps: no mesh "
+        f"{mp['jobs']['no_mesh_s']:.2f} s, "
+        + ", ".join(f"{m} {mp['jobs'][m]['wall_s']:.2f} s "
+                    f"({mp['jobs'][m]['launches']} launches)"
+                    for m in mp["batch_walls_s"])
+        + f", decisions and tags equal; methphase outputs == phase 4's; "
+        f"{card}")
 
     loaded = sorted(m for m in sys.modules
                     if m in ("jax", "pomfret_tpu")

@@ -4,8 +4,11 @@ methstat | warmup | varhaptag | bam2cram.
 Same flags, defaults and outputs as pomfret_tpu.cli (the argument parsing
 and checks are copies of it), with --engine cuda|torch|host|auto (cuda
 by default: without a GPU a run that names no engine raises) and
---device. One process: the JAX package's multi-host runs
-(POMFRET_NUM_PROCS > 1) are not ported.
+--device. Several processes run one methphase or report when
+POMFRET_COORDINATOR (host:port of process 0), POMFRET_NUM_PROCS and
+POMFRET_PROC_ID are set, as in the JAX package: each joins a gloo process
+group (parallel/distributed.py) before the subcommand runs and leaves it
+when the subcommand returns.
 """
 from __future__ import annotations
 
@@ -14,6 +17,7 @@ import os
 import sys
 
 from . import ENGINES, VERSION
+from .parallel import distributed
 from .pipeline import (CliOpt, main_blockjoin, main_methreport,
                        main_methstat, main_varhaptag, main_warmup)
 from .utils.log import (Get_T, Get_U, data_has_implicit, log_err, log_warn,
@@ -199,6 +203,25 @@ def main(argv=None) -> int:
     T = Get_T()
     parser = _parser()
     a = parser.parse_args(argv)
+    distributed.initialize()  # several processes when POMFRET_COORDINATOR is set
+    try:
+        ret = _run(parser, a)
+    finally:
+        distributed.shutdown()
+    sys.stderr.write("\n[M::main] CMD: pomfret-tpu-torch " + " ".join(argv)
+                     + "\n")
+    sys.stderr.write(f"[M::main] used: {Get_T() - T:.1f}s, peak RSS "
+                     f"{Get_U():.1f}GiB\n")
+    if data_has_implicit():
+        # main.c:96-100
+        sys.stderr.write("[W::main] Input BAM has implicit modified base calls.\n")
+        sys.stderr.write("  pomfret-tpu extracts 5mC without considering 5hmC, which is different from\n")
+        sys.stderr.write("  `modkit adjust-mods --motif CG 0 --ignore h in.bam out.bam`.\n")
+    return ret
+
+
+def _run(parser: argparse.ArgumentParser, a) -> int:
+    """Run the parsed subcommand; returns its exit code."""
     ret = 1
     if getattr(a, "ref_fasta", None) and a.cmd != "bam2cram":
         # CramReader resolves POMFRET_REF_FASTA at every internal open site
@@ -233,15 +256,6 @@ def main(argv=None) -> int:
     else:
         parser.print_help(sys.stderr)
         ret = 1
-    sys.stderr.write("\n[M::main] CMD: pomfret-tpu-torch " + " ".join(argv)
-                     + "\n")
-    sys.stderr.write(f"[M::main] used: {Get_T() - T:.1f}s, peak RSS "
-                     f"{Get_U():.1f}GiB\n")
-    if data_has_implicit():
-        # main.c:96-100
-        sys.stderr.write("[W::main] Input BAM has implicit modified base calls.\n")
-        sys.stderr.write("  pomfret-tpu extracts 5mC without considering 5hmC, which is different from\n")
-        sys.stderr.write("  `modkit adjust-mods --motif CG 0 --ignore h in.bam out.bam`.\n")
     return ret
 
 

@@ -15,6 +15,7 @@ oracle: it raises (see ROADMAP.md, queue 3).
 """
 from __future__ import annotations
 
+import math
 import os
 from dataclasses import dataclass
 from typing import Dict, Optional
@@ -295,12 +296,17 @@ def _reseeded(dd: GapDeviceData, rs: ReadSet, direction: int,
     return dataclasses.replace(dd, hp_init=hp_p, seed_ok=seed_p)
 
 
-def pack_group(loaded, cfg: MmrConfig, n_cand: int,
+def pack_group(loaded, cfg: MmrConfig, n_cand: int, lane_multiple: int = 1,
                n_permutations: int = 1, rngs=None):
     """Pack one group of loaded (i, rs, ms_fwd, ms_bwd) windows into device
     batches (engine_jax.pack_group): lanes [0:n) bwd, [n:2n) fwd; with
     permutation voting each (gap, direction) contributes n_permutations
     consecutive lanes. R and S pad to the _bucket_dim ladder.
+
+    lane_multiple: pad each batch's lane count to a multiple of this (the
+    mesh's device count), so the lane axis splits evenly. Power-of-two
+    counts up to 32 divide every bucket already; other counts pad the
+    lanes to a multiple of lcm(32, lane_multiple).
 
     rngs: per-gap Drand48 streams (required when n_permutations > 1).
 
@@ -397,6 +403,12 @@ def pack_group(loaded, cfg: MmrConfig, n_cand: int,
             for seed in seeds[1:]:
                 datas.append(_reseeded(dd, rs, direction, seed))
 
+    def _pad_lanes(n: int) -> int:
+        p = _bucket_lanes(n)
+        if p % lane_multiple:
+            p = _round_up(p, math.lcm(32, lane_multiple))
+        return p
+
     eligible = [d.blk is not None for d in datas]
     if all(eligible) or not any(eligible):
         lanes = [np.arange(len(datas))]
@@ -408,7 +420,7 @@ def pack_group(loaded, cfg: MmrConfig, n_cand: int,
         sub = [datas[i] for i in idx]
         parts.append((idx, pack_gap_batch(
             sub, [cfg.cov_for_runtime] * len(sub), n_cand,
-            pad_g=_bucket_lanes(len(sub)))))
+            pad_g=_pad_lanes(len(sub)))))
     return datas, parts, errs
 
 
@@ -528,21 +540,29 @@ def _pick_load_threads(bam) -> int:
 
 
 def run_jobs_batched(st, bam, jobs, group: int = 0, n_permutations: int = 1,
-                     *, engine: str, device):
+                     *, engine: str, device, mesh=None):
     """Run many chromosomes' gap jobs through ONE device pipeline.
 
     jobs: list of dicts {ref_name, rg, cfg, n_cand, indices, perm_key_base}.
     engine: "cuda" (the kernel) or "torch" (the plain loop) on `device`.
+    mesh: the devices each batch's lanes split over (parallel/batch.
+    make_gap_mesh); by default production_mesh(device), None for one
+    device. The group holds POMFRET_GAP_GROUP gaps per device, and its
+    lanes pad to a multiple of the device count.
     Returns a list of (decisions, tag_maps) dicts aligned with jobs.
 
     Up to POMFRET_PIPE_DEPTH groups are in flight: the device runs group k
     while the host loads and packs group k+1, across chromosome
     boundaries."""
     import time as _time
+    from ..parallel import batch as _batch
     from ..parallel.batch import DISPATCH_STATS, run_gap_batch_group_async
     from ..utils.stats import add_stage, stage
+    if mesh is None:
+        mesh = _batch.production_mesh(device)
+    n_dev = 1 if mesh is None else len(mesh)
     group = group or max(1, int(os.environ.get("POMFRET_GAP_GROUP", "128"))
-                         // max(1, n_permutations))
+                         * n_dev // max(1, n_permutations))
     n_load_threads = _pick_load_threads(bam)
     results = [({}, {}) for _ in jobs]  # (decisions, tag_maps) per job
 
@@ -694,6 +714,7 @@ def run_jobs_batched(st, bam, jobs, group: int = 0, n_permutations: int = 1,
         with stage("pack"):
             datas, parts, errs = pack_group(loaded, job["cfg"],
                                             job["n_cand"],
+                                            lane_multiple=n_dev,
                                             n_permutations=n_permutations,
                                             rngs=rngs)
         # in-flight groups only need hp/qname/boundary state for the decide
@@ -703,7 +724,8 @@ def run_jobs_batched(st, bam, jobs, group: int = 0, n_permutations: int = 1,
             _rs._site_sel_cache = None
         with stage("dispatch"):
             fut = run_gap_batch_group_async(parts, n_lanes=len(datas),
-                                            engine=engine, device=device)
+                                            engine=engine, device=device,
+                                            mesh=mesh)
         DISPATCH_STATS.setdefault("group_intervals", []).append(
             [_time.perf_counter(), None])  # drain time filled at drain
         pending.append((ji, loaded, datas, errs, fut,

@@ -1,11 +1,18 @@
-"""Batched gap execution on one device.
+"""Batched gap execution on one device or split over several.
 
-Counterpart of pomfret_tpu/parallel/batch.py for a single GPU (or the CPU):
-the packed numpy batch (GapBatch, equal to the JAX package's) becomes
-device tensors (batch_tensors), runs through the engine (_run_batch), and
-comes back as a (G, R) tag matrix. Each in-flight group has its own CUDA
-stream; its result is read once the event recorded after its download has
-completed.
+Counterpart of pomfret_tpu/parallel/batch.py: the packed numpy batch
+(GapBatch, equal to the JAX package's) becomes device tensors
+(batch_tensors), runs through the engine (_run_batch), and comes back as a
+(G, R) tag matrix. Each in-flight batch has its own CUDA stream; its result
+is read once the event recorded after its download has completed.
+
+A mesh (make_gap_mesh, production_mesh) is a tuple of devices. Every field
+of a GapBatch is lane-major, so a batch of G lanes splits into len(mesh)
+shards of G / len(mesh) consecutive lanes; shard k runs on mesh[k], on a
+stream of its own, and the shards' rows are stacked back in lane order
+(ShardedBatch). Lanes are independent, so the result is the same at any
+device count. A batch whose G the device count does not divide raises:
+pack_group's lane_multiple pads G so that it divides.
 
 Engines: "cuda" runs the hand-written kernels and raises on a CPU tensor;
 "torch" runs their plain versions on whatever device the batch was given.
@@ -17,10 +24,11 @@ per iteration with the commit in plain torch (engine_fused.run_batch_fused).
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
 import os
 from dataclasses import dataclass
-from typing import Dict, Optional, Sequence
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -248,19 +256,78 @@ DISPATCH_STATS = {"n_dispatches": 0, "n_devices_last": 1, "lanes_last": 0,
 
 
 class PendingBatch:
-    """(G, R) tag matrix of a dispatched batch. np.asarray waits for the
-    event recorded after the device-to-host copy (CUDA), then returns the
-    host array."""
+    """(G, R) tag matrix of a batch dispatched to one device. np.asarray
+    waits for the event recorded after the device-to-host copy (CUDA),
+    then returns the host array; stats() gives the loop's (G, 8) stats."""
 
-    def __init__(self, host: torch.Tensor, event=None):
+    def __init__(self, host: torch.Tensor, event=None, stats=None):
         self._host = host
         self._event = event
+        self._stats = stats
 
     def __array__(self, dtype=None, copy=None):
         if self._event is not None:
             self._event.synchronize()
         out = self._host.numpy()
         return out if dtype is None else out.astype(dtype, copy=False)
+
+    def stats(self) -> np.ndarray:
+        if self._event is not None:
+            self._event.synchronize()
+        return self._stats.cpu().numpy()
+
+
+class ShardedBatch:
+    """(G, R) tag matrix of a batch split over a mesh: np.asarray waits for
+    every shard and stacks their rows in lane order; stats() likewise."""
+
+    def __init__(self, shards):
+        self._shards = shards  # [PendingBatch, ...] in lane order
+
+    def __array__(self, dtype=None, copy=None):
+        out = np.concatenate([np.asarray(s) for s in self._shards])
+        return out if dtype is None else out.astype(dtype, copy=False)
+
+    def stats(self) -> np.ndarray:
+        return np.concatenate([s.stats() for s in self._shards])
+
+
+Mesh = Tuple[torch.device, ...]
+
+
+def make_gap_mesh(devices: Sequence) -> Mesh:
+    """A mesh over `devices` (torch.device or its name): shard k of every
+    batch runs on devices[k]. A device may be named more than once; its
+    shards then run on streams of their own on that one device."""
+    mesh = tuple(torch.device(d) for d in devices)
+    if not mesh or len({d.type for d in mesh}) != 1:
+        raise ValueError(f"a mesh needs one or more devices of one type, "
+                         f"got {devices}")
+    return mesh
+
+
+def production_mesh(device) -> Optional[Mesh]:
+    """The mesh of this process's production gap batches, or None for one
+    device. `device` is where the engine runs (resolve_device): a CUDA
+    device without an index means every GPU this process sees
+    (CUDA_VISIBLE_DEVICES restricts them), torch.cuda.device_count() of
+    them; an indexed one (cuda:1), the CPU, or the host engine (None) means
+    that device alone. As in the JAX package, POMFRET_NO_MESH=1 forces one
+    device and POMFRET_MESH_DEVICES=N caps the count. Several processes
+    compose: each splits its own round-robin share of the gaps over its
+    own mesh."""
+    if device is None or os.environ.get("POMFRET_NO_MESH"):
+        return None
+    device = torch.device(device)
+    if device.type != "cuda" or device.index is not None:
+        return None
+    n = torch.cuda.device_count()
+    cap = os.environ.get("POMFRET_MESH_DEVICES")
+    if cap:
+        n = min(n, int(cap))
+    if n <= 1:
+        return None
+    return make_gap_mesh([f"cuda:{i}" for i in range(n)])
 
 
 def upload_gap_batch(batch: GapBatch, max_iters: Optional[int] = None, *,
@@ -271,36 +338,69 @@ def upload_gap_batch(batch: GapBatch, max_iters: Optional[int] = None, *,
     return batch_tensors(batch, max_iters, device)
 
 
-def run_gap_batch_async(batch: GapBatch, max_iters: Optional[int] = None, *,
-                        engine: str, device) -> PendingBatch:
-    """Upload and run a batch without waiting for it. On a GPU the work
-    goes on a stream of its own, so the host packs the next group while
-    this one runs."""
-    device = torch.device(device)
-    DISPATCH_STATS["n_dispatches"] += 1
-    DISPATCH_STATS["n_devices_last"] = 1
-    DISPATCH_STATS["lanes_last"] = batch.shape3[0]
+_LANE_FIELDS = ("ids", "has_mmr", "hp_init", "seed_ok", "perm", "n_reads",
+                "n_sites", "q_break", "min0", "max0", "cov", "n_cand", "blk",
+                "b0")
+
+
+def _lanes(batch: GapBatch, lo: int, hi: int) -> GapBatch:
+    """Lanes [lo, hi) of a batch (views of its arrays)."""
+    return dataclasses.replace(batch, **{
+        f: getattr(batch, f)[lo:hi] for f in _LANE_FIELDS
+        if getattr(batch, f) is not None})
+
+
+def _dispatch(batch: GapBatch, max_iters: Optional[int], engine: str,
+              device: torch.device) -> PendingBatch:
+    """Upload and run a batch on one device without waiting for it. On a
+    GPU the work goes on a new stream of that device, so the host packs the
+    next group while this one runs, and two shards on one card overlap."""
     if device.type != "cuda":
-        return PendingBatch(_run_batch(
-            upload_gap_batch(batch, max_iters, device=device), batch,
-            engine)[0])
+        hp, stats = _run_batch(upload_gap_batch(batch, max_iters,
+                                                device=device),
+                               batch, engine)
+        return PendingBatch(hp, stats=stats)
     stream = torch.cuda.Stream(device)
     with torch.cuda.stream(stream):
-        hp, _stats = _run_batch(upload_gap_batch(batch, max_iters,
-                                                 device=device),
-                                batch, engine)
+        hp, stats = _run_batch(upload_gap_batch(batch, max_iters,
+                                                device=device),
+                               batch, engine)
         host = torch.empty(hp.shape, dtype=hp.dtype, pin_memory=True)
         host.copy_(hp, non_blocking=True)
         event = torch.cuda.Event()
         event.record(stream)
-    return PendingBatch(host, event)
+    return PendingBatch(host, event, stats)
+
+
+def run_gap_batch_async(batch: GapBatch, max_iters: Optional[int] = None, *,
+                        engine: str, device=None,
+                        mesh: Optional[Mesh] = None):
+    """Upload and run a batch without waiting for it: on `device`, or split
+    over `mesh` (a PendingBatch, or a ShardedBatch for a mesh of several
+    devices). Raises if the mesh's device count does not divide G."""
+    devices = mesh if mesh is not None else (torch.device(device),)
+    G = batch.shape3[0]
+    n = len(devices)
+    if G % n:
+        raise ValueError(f"a batch of {G} lanes does not split over {n} "
+                         f"devices (pack it with lane_multiple={n})")
+    DISPATCH_STATS["n_dispatches"] += 1
+    DISPATCH_STATS["n_devices_last"] = n
+    DISPATCH_STATS["lanes_last"] = G
+    if n == 1:
+        return _dispatch(batch, max_iters, engine, devices[0])
+    step = G // n
+    return ShardedBatch([_dispatch(_lanes(batch, k * step, (k + 1) * step),
+                                   max_iters, engine, d)
+                         for k, d in enumerate(devices)])
 
 
 def run_gap_batch(batch: GapBatch, max_iters: Optional[int] = None, *,
-                  engine: str, device) -> np.ndarray:
+                  engine: str, device=None,
+                  mesh: Optional[Mesh] = None) -> np.ndarray:
     """Run a packed (gap, direction) batch; returns (G, R) tag vectors."""
     return np.asarray(run_gap_batch_async(batch, max_iters, engine=engine,
-                                          device=device))
+                                          device=device, mesh=mesh))
 
 
 class StitchedGroupResult:
@@ -310,7 +410,7 @@ class StitchedGroupResult:
     a part's padded R stay at the unphased state (2)."""
 
     def __init__(self, parts, n_lanes: int):
-        self._parts = parts  # [(lane_indices, PendingBatch), ...]
+        self._parts = parts  # [(lane_indices, pending result), ...]
         self._n = n_lanes
 
     def __array__(self, dtype=None, copy=None):
@@ -325,14 +425,15 @@ class StitchedGroupResult:
 
 
 def run_gap_batch_group_async(parts, n_lanes: Optional[int] = None, *,
-                              engine: str, device):
+                              engine: str, device=None,
+                              mesh: Optional[Mesh] = None):
     """Dispatch a packed group's sub-batches (pack_group's parts list).
-    One part returns its PendingBatch; a mixed group dispatches every
+    One part returns its pending result; a mixed group dispatches every
     sub-batch before blocking on any and returns a StitchedGroupResult."""
+    kw = dict(engine=engine, device=device, mesh=mesh)
     if len(parts) == 1:
-        return run_gap_batch_async(parts[0][1], engine=engine, device=device)
-    futs = [(idx, run_gap_batch_async(b, engine=engine, device=device))
-            for idx, b in parts]
+        return run_gap_batch_async(parts[0][1], **kw)
+    futs = [(idx, run_gap_batch_async(b, **kw)) for idx, b in parts]
     if n_lanes is None:
         n_lanes = int(max(i.max() for i, _ in futs)) + 1
     return StitchedGroupResult(futs, n_lanes)

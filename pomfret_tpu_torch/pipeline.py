@@ -8,7 +8,11 @@ _derive_chrom_params, main_varhaptag and main_methstat. The device parts
 drive the port's engine (kernels/engine_torch.run_jobs_batched) where the
 JAX package drives engine_jax: _blockjoin_all_chroms_torch,
 blockjoin_parallel, main_blockjoin (with --profile on torch.profiler),
-main_warmup and main_methreport. One process, one device.
+main_warmup and main_methreport. Several processes (POMFRET_COORDINATOR,
+POMFRET_NUM_PROCS, POMFRET_PROC_ID; parallel/distributed.py) deal the gaps
+and report windows round-robin, all-gather the decisions and tags, and
+process 0 writes; each process splits its batches over the GPUs it sees
+(parallel/batch.production_mesh).
 """
 from __future__ import annotations
 
@@ -36,6 +40,7 @@ from .io.cram import open_alignment
 from .io.intervals_loader import IS_GTF, IS_TSV, IS_VCF, load_intervals_from_file
 from .io.writers import (output_gtf, output_modify_bam, output_modify_vcf,
                          output_tsv)
+from .parallel import distributed
 from .utils.log import Get_T, log_err, log_info, log_warn
 from .utils.manifest import ManifestWriter, load_manifest
 from .utils.stats import stage
@@ -256,12 +261,13 @@ def _derive_chrom_params(config: MmrConfig, n_cand: int, coverage: int,
 
 def _blockjoin_one_chrom(st: Storage, fn_bam: str, job_i: int,
                          config: MmrConfig, n_cand_in: int, coverage: int,
-                         manifest=None, done=None,
+                         gap_filter=None, manifest=None, done=None,
                          n_permutations: int = 1) -> Dict[str, int]:
     """One chromosome's gap-joining jobs on the host oracle
     (blockjoin_one_chrom_callback, blockjoin.c:4350-4426). Returns the
-    per-chromosome qname->haptag map. manifest/done implement
-    checkpoint-resume at gap granularity."""
+    per-chromosome qname->haptag map. gap_filter(i) -> bool restricts it
+    to this process's gaps; manifest/done implement checkpoint-resume at
+    gap granularity."""
     rg = st.ranges[job_i]
     ref_name = st.ref_names[job_i]
     cfg, n_cand = _derive_chrom_params(config, n_cand_in, coverage, ref_name)
@@ -271,6 +277,8 @@ def _blockjoin_one_chrom(st: Storage, fn_bam: str, job_i: int,
     qname2haptag: Dict[str, int] = {}
     indices = []
     for i in range(len(rg.starts)):
+        if gap_filter is not None and not gap_filter(i):
+            continue
         if done is not None and (ref_name, i) in done:
             e = done[(ref_name, i)]
             rg.decisions[i] = e["decision"]
@@ -293,22 +301,17 @@ def _blockjoin_one_chrom(st: Storage, fn_bam: str, job_i: int,
     return qname2haptag
 
 
-def _single_process():
-    if int(os.environ.get("POMFRET_NUM_PROCS", "1")) > 1:
-        raise NotImplementedError("multi-process runs (POMFRET_NUM_PROCS > 1)"
-                                  " are not yet ported to pomfret_tpu_torch")
-
-
 def _blockjoin_all_chroms_torch(st: Storage, fn_bam: str, config: MmrConfig,
-                                n_cand_in: int, ref_covs, manifest, done,
-                                n_permutations: int, *, engine: str,
-                                device) -> List[Dict[str, int]]:
+                                n_cand_in: int, ref_covs, make_filter,
+                                manifest, done, n_permutations: int, *,
+                                engine: str, device) -> List[Dict[str, int]]:
     """All chromosomes' gap jobs through ONE device pipeline
     (run_jobs_batched), so the in-flight groups span chromosome
-    boundaries. Per-chromosome parameter derivation, resume handling and
-    the first-wins tag merge order (done gaps first, then engine gaps, both
-    in gap order) are those of the per-chromosome path. Returns the
-    per-chromosome qname->haptag maps."""
+    boundaries. Per-chromosome parameter derivation, the process's gap
+    filter (make_filter(job_i)), resume handling and the first-wins tag
+    merge order (done gaps first, then engine gaps, both in gap order) are
+    those of the per-chromosome path. Returns the per-chromosome
+    qname->haptag maps."""
     from .kernels.engine_torch import run_jobs_batched
     bam = open_alignment(fn_bam)
     qmaps: List[Dict[str, int]] = [dict() for _ in st.ranges]
@@ -319,8 +322,11 @@ def _blockjoin_all_chroms_torch(st: Storage, fn_bam: str, config: MmrConfig,
                                            ref_covs[job_i], ref_name)
         log_info("blockjoin_one_chrom",
                  f"ref {ref_name} using: cov_for_selection={cfg.cov_for_selection}, n_cand_per_iter={n_cand}")
+        gap_filter = make_filter(job_i)
         indices = []
         for i in range(len(rg.starts)):
+            if gap_filter is not None and not gap_filter(i):
+                continue
             if done is not None and (ref_name, i) in done:
                 e = done[(ref_name, i)]
                 rg.decisions[i] = e["decision"]
@@ -354,8 +360,10 @@ def blockjoin_parallel(opt: CliOpt, config: MmrConfig,
                        device=None) -> Storage:
     """Load gaps (+ optional varhaptag), then join per chromosome
     (blockjoin.c:4428-4603). opt.engine is auto|host|torch|cuda; `device`
-    is where the torch engine runs (see resolve_device)."""
-    _single_process()
+    is where the torch engine runs (see resolve_device). With several
+    processes, each decides the gaps of the global gap list dealt to it
+    round-robin, and the decisions and tags are all-gathered, so every
+    process ends with the whole result."""
     engine, dev = resolve_device(opt.engine, device)
     T = Get_T()
     st = Storage()
@@ -419,12 +427,27 @@ def blockjoin_parallel(opt: CliOpt, config: MmrConfig,
 
     n_jobs = len(st.ref_names)
     if engine != "host" and opt.threads > 1:
-        # one device serializes the loop; worker threads would only add
+        # one pipeline feeds the devices; worker threads would only add
         # resident batches
         log_warn("blockjoin_parallel",
-                 f"{engine} engine drives a single device; clamping worker threads to 1")
+                 f"{engine} engine runs one device pipeline; clamping worker threads to 1")
         opt = dataclasses.replace(opt, threads=1)
 
+    # several processes: deterministic round-robin over the GLOBAL gap list
+    n_procs = distributed.process_count()
+    proc_id = distributed.process_index()
+    gap_global: Dict[Tuple[int, int], int] = {}
+    for i_ref, rg in enumerate(st.ranges):
+        for i in range(len(rg.starts)):
+            gap_global[(i_ref, i)] = len(gap_global)
+
+    def make_filter(i_ref):
+        if n_procs == 1:
+            return None
+        return lambda i: gap_global[(i_ref, i)] % n_procs == proc_id
+
+    # every process opens the same manifest path, as the JAX package does
+    # (ROADMAP queue 3)
     manifest_path = opt.output_prefix + ".mp.manifest.jsonl"
     done = load_manifest(manifest_path) if opt.resume else None
     manifest = ManifestWriter(manifest_path, append=bool(opt.resume))
@@ -432,28 +455,42 @@ def blockjoin_parallel(opt: CliOpt, config: MmrConfig,
     if engine != "host":
         maps = _blockjoin_all_chroms_torch(st, opt.fn_bam, config,
                                            opt.n_candidates_per_iter,
-                                           ref_covs, manifest, done,
-                                           opt.n_permutations,
+                                           ref_covs, make_filter, manifest,
+                                           done, opt.n_permutations,
                                            engine=engine, device=dev)
     elif opt.threads > 1 and n_jobs > 1:
         with _fut.ThreadPoolExecutor(opt.threads) as ex:
             maps = list(ex.map(
                 lambda i: _blockjoin_one_chrom(st, opt.fn_bam, i, config,
                                                opt.n_candidates_per_iter,
-                                               ref_covs[i], manifest, done,
+                                               ref_covs[i], make_filter(i),
+                                               manifest, done,
                                                opt.n_permutations),
                 range(n_jobs)))
     else:
         maps = [_blockjoin_one_chrom(st, opt.fn_bam, i, config,
                                      opt.n_candidates_per_iter, ref_covs[i],
-                                     manifest, done, opt.n_permutations)
+                                     make_filter(i), manifest, done,
+                                     opt.n_permutations)
                 for i in range(n_jobs)]
     manifest.close()
     local_tags: Dict[str, int] = {}
     for m in maps:
         for qn, hp in m.items():
             local_tags.setdefault(qn, hp)
-    st.qname2haptag.update(local_tags)
+
+    # every process ends with every gap's decision and the merged tags
+    # (with one process, its own)
+    local_dec = {gidx: st.ranges[i_ref].decisions[i]
+                 for (i_ref, i), gidx in gap_global.items()
+                 if gidx % n_procs == proc_id}
+    dec = distributed.allgather_decisions(local_dec, len(gap_global))
+    for (i_ref, i), gidx in gap_global.items():
+        st.ranges[i_ref].decisions[i] = int(dec[gidx])
+    st.qname2haptag.update(distributed.allgather_tag_maps(local_tags))
+    if n_procs > 1:
+        log_info("blockjoin_parallel", f"multi-process merge: {n_procs} "
+                 f"processes, {len(gap_global)} gaps")
     log_info("blockjoin_parallel", f"done, used {Get_T() - T:.1f}s.")
     return st
 
@@ -467,7 +504,10 @@ def main_warmup(opt: CliOpt, device=None) -> int:
     group of every chromosome is loaded and packed through pack_group, as
     run_jobs_batched packs it, and the engine runs at max_iters=0 once per
     distinct (G, R, S, layout, D, nc_cap): the kernel launches and leaves
-    before iteration 1. --engine host has nothing to warm."""
+    before iteration 1. Groups and lanes are sized for the production mesh
+    (POMFRET_GAP_GROUP gaps per device, lanes padded to a multiple of the
+    device count), and each shape runs split over it. --engine host has
+    nothing to warm."""
     engine, dev = resolve_device(opt.engine, device)
     if engine == "host":
         log_info("main_warmup", "host engine selected; nothing to warm")
@@ -475,7 +515,7 @@ def main_warmup(opt: CliOpt, device=None) -> int:
     from .io import native
     from .kernels import _build
     from .kernels.engine_torch import pack_group
-    from .parallel.batch import run_gap_batch
+    from .parallel.batch import production_mesh, run_gap_batch
     T = Get_T()
     if engine == "cuda":
         _build.get_lib()
@@ -503,7 +543,9 @@ def main_warmup(opt: CliOpt, device=None) -> int:
     else:
         ref_covs = [config.cov_known] * len(st.ref_names)
 
-    group = int(os.environ.get("POMFRET_GAP_GROUP", "128"))
+    mesh = production_mesh(dev)
+    n_dev = 1 if mesh is None else len(mesh)
+    group = int(os.environ.get("POMFRET_GAP_GROUP", "128")) * n_dev
     seen = set()
     T = Get_T()
     for i_ref, rg in enumerate(st.ranges):
@@ -522,14 +564,16 @@ def main_warmup(opt: CliOpt, device=None) -> int:
                 loaded.append((i, rs, ms_f, ms_b))
             if not loaded:
                 continue
-            _datas, parts, _errs = pack_group(loaded, cfg, n_cand)
+            _datas, parts, _errs = pack_group(loaded, cfg, n_cand,
+                                              lane_multiple=n_dev)
             for _idx, batch in parts:
                 key = (batch.shape3, batch.blk is None, batch.D,
                        batch.nc_cap)
                 if key in seen:
                     continue
                 seen.add(key)
-                run_gap_batch(batch, max_iters=0, engine=engine, device=dev)
+                run_gap_batch(batch, max_iters=0, engine=engine, device=dev,
+                              mesh=mesh)
                 G, R, S = batch.shape3
                 log_info("main_warmup",
                          f"{st.ref_names[i_ref]}: ran the {engine} engine on "
@@ -542,8 +586,9 @@ def main_warmup(opt: CliOpt, device=None) -> int:
 def main_blockjoin(opt: CliOpt, device=None) -> int:
     """methphase (main_blockjoin, blockjoin.c:4643-4735). With --profile,
     torch.profiler traces the gap joining (CPU activity, and CUDA activity
-    on the cuda engine) into <prefix>.profile/trace.json; a profiler that
-    fails to start raises."""
+    on the cuda engine) into <prefix>.profile/trace.json (trace.<rank>.json
+    for a process other than 0); a profiler that fails to start raises.
+    With several processes, process 0 alone writes the outputs."""
     config = MmrConfig(
         k=opt.k, k_span=opt.k_span, lo=opt.lo, hi=opt.hi,
         cov_known=opt.cov, cov_for_selection=opt.cov_for_selection,
@@ -563,13 +608,19 @@ def main_blockjoin(opt: CliOpt, device=None) -> int:
                 torch.cuda.synchronize(dev)
         out_dir = opt.output_prefix + ".profile"
         os.makedirs(out_dir, exist_ok=True)
-        prof.export_chrome_trace(os.path.join(out_dir, "trace.json"))
-        log_info("main_blockjoin", f"profiler trace -> {out_dir}/trace.json")
+        rank = distributed.process_index()
+        name = f"trace.{rank}.json" if rank else "trace.json"
+        prof.export_chrome_trace(os.path.join(out_dir, name))
+        log_info("main_blockjoin", f"profiler trace -> {out_dir}/{name}")
     else:
         st = blockjoin_parallel(opt, config, device)
     lift_decisions(st)
     make_decisions_flippings_onraw(st)
     generate_new_phase_blocks(st, use_raw=True)
+    if distributed.process_index() != 0:
+        # every process holds the same merged state; process 0 writes
+        log_info("main_blockjoin", "non-zero process: skipping output writes")
+        return 0
     if opt.write_debug_files:
         with open(opt.output_prefix + ".mp.dbg.read2tag", "w") as f:
             for qn, hap in st.qname2haptag.items():
@@ -681,9 +732,9 @@ def main_methreport(opt: CliOpt, device=None) -> int:
     """report (main_methreport, blockjoin.c:4908-5097): probe windows
     inside the phased blocks, each scored like a gap. The batched device
     engine takes every window of every chromosome through one
-    run_jobs_batched; --engine host scores them one by one. One process;
-    the JAX package's round-robin over hosts is not ported."""
-    _single_process()
+    run_jobs_batched; --engine host scores them one by one. With several
+    processes the windows are dealt round-robin, the decisions
+    all-gathered, and process 0 writes the report."""
     engine, dev = resolve_device(opt.engine, device)
     T = Get_T()
     st = Storage()
@@ -724,14 +775,15 @@ def main_methreport(opt: CliOpt, device=None) -> int:
     config = MmrConfig(k=opt.k, k_span=opt.k_span, lo=opt.lo, hi=opt.hi,
                        readlen_threshold=opt.readlen_threshold,
                        min_mapq=opt.mapq)
+    # windows round-robin over processes, decisions all-gathered
+    n_procs = distributed.process_count()
+    proc_id = distributed.process_index()
     win_global: Dict[Tuple[int, int], int] = {}
-    g = 0
     for i_ref, rg in enumerate(st.ranges):
         for wi in range(len(rg.starts)):
-            win_global[(i_ref, wi)] = g
-            g += 1
-    n_windows = g
-    dec_vec = np.full(n_windows, -1, dtype=np.int32)
+            win_global[(i_ref, wi)] = len(win_global)
+    n_windows = len(win_global)
+    local_dec: Dict[int, int] = {}
 
     jobs = []
     for i_ref, rg in enumerate(st.ranges):
@@ -750,7 +802,8 @@ def main_methreport(opt: CliOpt, device=None) -> int:
         cfg.cov_for_selection = cov // 10 + 1
         cfg.cov_for_runtime = cfg.cov_for_selection * 2
         n_cand = cov // 4 + 1
-        mine = list(range(len(rg.starts)))
+        mine = [wi for wi in range(len(rg.starts))
+                if win_global[(i_ref, wi)] % n_procs == proc_id]
         if engine != "host" and mine:
             jobs.append(dict(job_i=i_ref, ref_name=st.ref_names[i_ref],
                              rg=rg, cfg=cfg, n_cand=n_cand, indices=mine,
@@ -761,7 +814,7 @@ def main_methreport(opt: CliOpt, device=None) -> int:
                     st, bam, st.ref_names[i_ref], rg.starts[wi], rg.ends[wi],
                     cfg, n_cand, n_permutations=opt.n_permutations,
                     perm_key=i_ref * 1_000_003 + wi)
-                dec_vec[win_global[(i_ref, wi)]] = decision
+                local_dec[win_global[(i_ref, wi)]] = decision
                 if (k + 1) % 100 == 0:
                     log_info("main_methreport",
                              f"scored {k + 1}/{len(mine)} windows on "
@@ -773,7 +826,13 @@ def main_methreport(opt: CliOpt, device=None) -> int:
                                    engine=engine, device=dev)
         for job, (decisions, _) in zip(jobs, results):
             for wi in job["indices"]:
-                dec_vec[win_global[(job["job_i"], wi)]] = decisions[wi]
+                local_dec[win_global[(job["job_i"], wi)]] = decisions[wi]
+
+    dec_vec = distributed.allgather_decisions(local_dec, n_windows)
+    if proc_id != 0:
+        log_info("main_methreport", f"non-zero process of {n_procs}: "
+                 "skipping report write")
+        return 0
 
     n_correct = n_switch = n_fail = tot = 0
     with open(opt.output_prefix + ".report.tsv", "w") as f:

@@ -10,11 +10,19 @@ chip_smoke.py.
   the varhaptag path).
 - Randomized and crafted loop batches, the bench-shape batch and
   checked_step, for holding the kernels against their plain versions.
+- run_processes: one CLI command run by several processes of one gloo
+  process group on this host.
 """
 from __future__ import annotations
 
 import gzip
+import json
+import os
+import socket
+import subprocess
+import sys
 import tempfile
+import time
 from dataclasses import dataclass
 from typing import List, Optional, Sequence, Tuple
 
@@ -880,3 +888,109 @@ def bench_gap_batch(G: int = 256, n_cand: int = 14):
             wipe_mmr_of_reads(rs)
     return pack_gap_batch(lanes * (G // 2), [10] * G, n_cand=n_cand,
                           pad_g=G), rs.n
+
+
+def args_batch(args, D: int, nc_cap: int):
+    """A loop batch in the engines' argument order (fuzz_args, wide_args)
+    as a dense GapBatch and its max_iters (the same for every lane)."""
+    from .parallel.batch import GapBatch
+    (ids, has_mmr, hp_init, seed_ok, n_reads, n_sites, q_break, min0, max0,
+     cov, n_cand, max_iters) = args
+    G, R = has_mmr.shape
+    batch = GapBatch(ids=ids, has_mmr=has_mmr, hp_init=hp_init,
+                     seed_ok=seed_ok, perm=np.tile(np.arange(R, dtype=np.int32),
+                                                   (G, 1)),
+                     n_reads=n_reads, n_sites=n_sites, q_break=q_break,
+                     min0=min0, max0=max0, cov=cov, n_cand=n_cand, D=D,
+                     nc_cap=nc_cap)
+    return batch, int(max_iters[0])
+
+
+# The body of each process of run_processes: the CLI, then one line with
+# what the process did.
+_PROC_MAIN = r"""
+import json, sys, time
+t0 = time.perf_counter()
+from pomfret_tpu_torch.parallel import batch, distributed
+from pomfret_tpu_torch.utils.stats import stage_report
+argv, mesh = json.loads(sys.argv[1]), json.loads(sys.argv[2])
+if mesh:
+    batch.production_mesh = lambda device: batch.make_gap_mesh(mesh)
+from pomfret_tpu_torch.cli import main
+t1 = time.perf_counter()
+rc = main(argv)
+st = batch.DISPATCH_STATS
+print("RESULT " + json.dumps({
+    "rc": rc, "import_s": t1 - t0, "wall_s": time.perf_counter() - t1,
+    "stages": stage_report(3),
+    "kernel_launches": st["kernel_launches"],
+    "gaps_decided": st["gaps_decided"], "n_dispatches": st["n_dispatches"],
+    "n_devices_last": st["n_devices_last"], "lanes_last": st["lanes_last"],
+    "dist": distributed.DIST_STATS,
+    "loaded": sorted(m for m in sys.modules if m.split(".")[0] in
+                     ("jax", "pomfret_tpu"))}), flush=True)
+sys.exit(rc)
+"""
+
+
+def free_port() -> int:
+    """A free TCP port on the loopback interface."""
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def run_processes(argv: Sequence[str], n_procs: int, *, env=None,
+                  mesh: Optional[Sequence[str]] = None,
+                  timeout: float = 600) -> List[dict]:
+    """Run `pomfret-tpu-torch <argv>` in n_procs processes of one gloo
+    process group on this host (POMFRET_COORDINATOR on a free loopback
+    port, POMFRET_NUM_PROCS, POMFRET_PROC_ID), with `env` over this
+    process's environment; OMP_NUM_THREADS defaults to the host's cores
+    shared out. `mesh` (device names) replaces each process's
+    production_mesh. Returns, in rank order, what each process did: rc,
+    import_s (the port's and torch's imports), wall_s (the command),
+    stages (utils.stats seconds), kernel_launches, gaps_decided,
+    n_dispatches, n_devices_last, lanes_last, dist (DIST_STATS) and loaded
+    (the jax and pomfret_tpu* modules it loaded). Raises unless every process exits 0 within
+    `timeout` seconds; the others are killed then."""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    base = dict(os.environ)
+    base.setdefault("OMP_NUM_THREADS",
+                    str(max(1, (os.cpu_count() or 1) // n_procs)))
+    base.update(env or {})
+    base["PYTHONPATH"] = os.pathsep.join(
+        p for p in (root, base.get("PYTHONPATH")) if p)
+    base.update(POMFRET_COORDINATOR=f"127.0.0.1:{free_port()}",
+                POMFRET_NUM_PROCS=str(n_procs))
+    # output to files, not pipes: a process blocked on a full pipe would
+    # stall the others in their collectives
+    logs = [(tempfile.TemporaryFile("w+"), tempfile.TemporaryFile("w+"))
+            for _ in range(n_procs)]
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", _PROC_MAIN, json.dumps(list(argv)),
+         json.dumps(list(mesh or []))],
+        env=dict(base, POMFRET_PROC_ID=str(rank)), stdout=out, stderr=err,
+        text=True) for rank, (out, err) in enumerate(logs)]
+    deadline = time.monotonic() + timeout
+    outs = []
+    try:
+        for rank, (p, (out, err)) in enumerate(zip(procs, logs)):
+            p.wait(timeout=max(0.0, deadline - time.monotonic()))
+            out.seek(0)
+            err.seek(0)
+            if p.returncode != 0:
+                raise RuntimeError(f"process {rank} of {n_procs} exited "
+                                   f"{p.returncode}: {err.read()[-3000:]}")
+            line = [x for x in out.read().splitlines()
+                    if x.startswith("RESULT ")]
+            outs.append(json.loads(line[-1][len("RESULT "):]))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for out, err in logs:
+            out.close()
+            err.close()
+    return outs

@@ -247,13 +247,3 @@ def test_methphase_without_engine_needs_a_card(host_runs, tmp_path,
                    "--vcf", vcf, bam])
     assert DISPATCH_STATS["n_dispatches"] == n0
     assert not os.path.exists(str(tmp_path / "x") + ".mp.vcf")
-
-
-def test_unported_options_raise(host_runs, tmp_path, monkeypatch):
-    """Multi-process runs are not ported (--profile is: test_torch_cli)."""
-    bam, vcf, _ = host_runs[False]
-    args = ["methphase", "-o", str(tmp_path / "x"), "-c", "50",
-            "--engine", "torch", "--vcf", vcf, bam]
-    monkeypatch.setenv("POMFRET_NUM_PROCS", "2")
-    with pytest.raises(NotImplementedError, match="POMFRET_NUM_PROCS"):
-        port_main(args)
