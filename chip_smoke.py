@@ -4,6 +4,10 @@
     python3 chip_smoke.py            # every phase, one card
     python3 chip_smoke.py --only-kernels   # card, build and phase 3 only
                                            # (no result line)
+    python3 chip_smoke.py --only-probes    # card, build and phase 3b only
+    python3 chip_smoke.py --turns DIR      # phase 3b and methphase's walls
+                                           # of DIR's tree (P) and this one
+                                           # (C) in turns P C C P P C C P
 
 Phases, each printing one line:
  1. card: the GPU's name and power limit (nvidia-smi);
@@ -43,7 +47,10 @@ Phases, each printing one line:
     as the entry point calls it (CUDA events: back to back,
     and queued behind a spin kernel for the device time alone), and the
     stile ratio sum's full-S and tiled-S times at (32,16,1536), range
-    [128,640);
+    [128,640), with the wrapper's quotient and with __fdiv_rn (equal),
+    and its device time per iteration at S = 128-2048; then two row_copy
+    launches in flight on two streams at once, 20 times, each equal to
+    its plain version;
  4a. warmup: `pomfret-tpu-torch warmup --engine cuda` on the 200-gap scale
     dataset of bench.py (generated once into .bench_data/ by the port's
     testing.py): one loop-kernel launch at max_iters=0 per packed shape;
@@ -478,9 +485,12 @@ def phase_probes(dev):
     against the probe's oracle, then each kernel's raw outputs against its
     plain version on the same inputs (exact; bit for bit for the ratio
     sums; K1's staged buffer too), the times of every entry as the entry
-    point calls it, and the stile full-S/tiled-S times."""
+    point calls it, the stile full-S/tiled-S times by either quotient, and
+    K1 on two streams at once."""
+    import numpy as np
     import torch
     from pomfret_tpu_torch.kernels import probes as kp
+    from pomfret_tpu_torch.testing import row_copy_two_streams
     from pomfret_tpu_torch.tools import probes as tp
 
     for fn in kp.PROBE_KERNELS.values():
@@ -516,7 +526,8 @@ def phase_probes(dev):
             plain_ms=cuda_ms(lambda: p.call(plain_fn, t), 2 if heavy else 10),
             **probe_bound(p, inputs))
 
-    # tiled-S against full-S, each alone, at probe_stile's shape
+    # tiled-S against full-S, each alone, at probe_stile's shape; and the
+    # quotient by __fdiv_rn against the wrapper's (the same bits)
     stile = {}
     for stem in ("probe_stile", "probe_stile2"):
         p = tp.PROBES[(stem, "main")]
@@ -527,17 +538,42 @@ def phase_probes(dev):
 
             def fn():
                 return kp.stile(*args, tiled=tiled, n_iter=n_iter)
+
+            def fdiv():
+                return kp.stile_divided(*args, tiled=tiled, n_iter=n_iter,
+                                        rcp=False)
+            check(torch.equal(fn(), fdiv()), f"{stem}: stile with __fdiv_rn "
+                  "!= stile")
             reps = 200 if n_iter == 1 else 5
             ms, dms = cuda_ms(fn, reps), queued_ms(fn, reps)
             stile[f"{stem} {'tiled' if tiled else 'full'}"] = dict(
                 n_iter=n_iter, us_per_call=ms * 1e3,
                 device_us_per_call=dms * 1e3,
                 device_us_per_iter=dms * 1e3 / n_iter,
+                fdiv_device_us_per_iter=queued_ms(fdiv, reps) * 1e3 / n_iter,
                 plain_us_per_call=cuda_ms(
                     lambda: kp.stile_plain(*args, tiled=tiled, n_iter=n_iter),
                     20 if n_iter == 1 else 2) * 1e3)
+    # the ratio sum's device time per iteration against the sites it
+    # visits (full-S, every site in range, S = 128-2048 at B=32, NC=16):
+    # the slope between 100 and 400 iterations, no launch in it
+    r = np.random.default_rng(0)
+    sweep = {}
+    for S in (128, 512, 1024, 1536, 2048):
+        args = (torch.from_numpy(r.integers(0, 5, size=(32, 8, S)).astype(
+                    np.float32)).to(dev),
+                torch.from_numpy(r.integers(-1, 4, size=(32, 16, S)).astype(
+                    np.int32)).to(dev),
+                torch.tensor([[0, S]] * 32, dtype=torch.int32, device=dev))
+        us = [queued_ms(lambda: kp.stile(*args, tiled=False, n_iter=n), 5)
+              * 1e3 for n in (100, 400)]
+        sweep[S] = (us[1] - us[0]) / 300
+    bad = row_copy_two_streams(dev, trials=20)
+    check(not bad, f"row_copy on two streams at once: trials {bad} differ "
+          "from the plain version")
     return dict(launches=launches, max_abs_err=max_err, entries=entries,
-                stile=stile)
+                stile=stile, stile_us_per_iter_by_S=sweep,
+                two_stream_trials=20)
 
 
 def phase_run_gap(scenarios):
@@ -921,12 +957,132 @@ def decisions(prefix):
         return [json.loads(line)["decision"] for line in f if line.strip()]
 
 
+def write_report(report, name):
+    out_dir = os.path.join(ROOT, "chiprun_out")
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, name), "w") as f:
+        json.dump(report, f, indent=1, default=str)
+
+
+def say_probes(pb, seconds, card):
+    st = pb["stile"]
+    say("probes", f"{len(pb['entries'])} tools/ probe entries == their "
+        f"oracles and == the plain versions (max |d| "
+        f"{max(pb['max_abs_err'].values())}); launches {pb['launches']}; "
+        "stile at (32,16,1536), range [128,640), per call full-S / tiled-S: "
+        + "; ".join(
+            f"{stem} {st[stem + ' full']['us_per_call']:.1f} / "
+            f"{st[stem + ' tiled']['us_per_call']:.1f} us (device "
+            f"{st[stem + ' full']['device_us_per_call']:.1f} / "
+            f"{st[stem + ' tiled']['device_us_per_call']:.1f} us, "
+            f"{st[stem + ' full']['device_us_per_iter']:.3f} / "
+            f"{st[stem + ' tiled']['device_us_per_iter']:.3f} us per "
+            "iteration; by __fdiv_rn "
+            f"{st[stem + ' full']['fdiv_device_us_per_iter']:.3f} / "
+            f"{st[stem + ' tiled']['fdiv_device_us_per_iter']:.3f})"
+            for stem in ("probe_stile", "probe_stile2"))
+        + f"; {seconds:.1f} s; {card}")
+    say("probes", "stile device us per iteration by S (full-S, all sites "
+        "kept, B=32, NC=16): " + ", ".join(
+            f"{S} {us:.4f}" for S, us in pb["stile_us_per_iter_by_S"].items())
+        + f"; {card}")
+    k1 = {k: e["device_ms"] * 1e3 for k, e in pb["entries"].items()
+          if e["kernel"] == "probe_row_copy"}
+    say("probes", f"row_copy: {len(k1)} entries, device "
+        f"{min(k1.values()):.2f}-{max(k1.values()):.2f} us a launch "
+        f"({PROBE_AT['probe_row_copy'][1]} "
+        f"{k1[' '.join(PROBE_AT['probe_row_copy'])]:.2f}); two launches in "
+        f"flight on two streams, {pb['two_stream_trials']} times: each "
+        f"kept its own lane sums and total; {card}")
+
+
+# One turn of `--turns`, run by a fresh process from the root of a tree
+# (this one or another commit's, whose chip_smoke.py has phase_probes and
+# methphase): the probe phase, then methphase --engine cuda on the given
+# dataset once cold and `runs` times warm; one TURN line.
+_TURN_MAIN = r"""
+import json, os, shutil, sys, tempfile, time
+sys.path.insert(0, os.getcwd())
+os.environ["POMFRET_NO_HOST_FALLBACK"] = "1"
+import torch
+import chip_smoke as cs
+bam, vcf, runs = sys.argv[1], sys.argv[2], int(sys.argv[3])
+t0 = time.perf_counter()
+pb = cs.phase_probes(torch.device("cuda"))
+probe_s = time.perf_counter() - t0
+work = tempfile.mkdtemp(prefix="turn_")
+base = ["--engine", "cuda", "--vcf", vcf, bam]
+cs.methphase(["-o", os.path.join(work, "cold"), *base])
+walls = [cs.methphase(["-o", os.path.join(work, f"w{i}"), *base])
+         for i in range(runs)]
+shutil.rmtree(work)
+print("TURN " + json.dumps({
+    "probe_s": probe_s, "walls_s": walls,
+    "entries": {k: e["device_ms"] * 1e3 for k, e in pb["entries"].items()},
+    "stile": {k: v["device_us_per_iter"] for k, v in pb["stile"].items()}}),
+    flush=True)
+"""
+
+
+def turns(parent, order="PCCPPCCP", runs=3):
+    """The probe phase and methphase's warm walls of this tree (C) and of
+    another tree (P, e.g. the parent commit unpacked by git archive), each
+    turn a fresh process, in the given order; per tree the median of each
+    entry's device us, of stile's device us per iteration and of the
+    walls. Writes chiprun_out/chip_turns.json."""
+    import statistics
+    bam, vcf, _ = scale_dataset()
+    trees = {"P": os.path.abspath(parent), "C": ROOT}
+    got = {"P": [], "C": []}
+    for tag in order:
+        p = subprocess.run([sys.executable, "-c", _TURN_MAIN, bam, vcf,
+                            str(runs)], cwd=trees[tag], capture_output=True,
+                           text=True, timeout=1500)
+        line = [x for x in p.stdout.splitlines() if x.startswith("TURN ")]
+        check(p.returncode == 0 and line, f"turn {tag} in {trees[tag]} "
+              f"exited {p.returncode}: {p.stderr[-3000:]}")
+        got[tag].append(json.loads(line[-1][5:]))
+        say("turns", f"{tag}: probes {got[tag][-1]['probe_s']:.1f} s, "
+            f"methphase walls {got[tag][-1]['walls_s']}")
+    med = {}
+    for tag, runs_ in got.items():
+        walls = sorted(w for r in runs_ for w in r["walls_s"])
+        med[tag] = dict(
+            walls_s=statistics.median(walls),
+            walls_quartiles=statistics.quantiles(walls, n=4)[::2],
+            entries={k: statistics.median(r["entries"][k] for r in runs_)
+                     for k in runs_[0]["entries"]},
+            stile={k: statistics.median(r["stile"][k] for r in runs_)
+                   for k in runs_[0]["stile"]})
+    write_report(dict(order=order, trees=trees, turns=got, medians=med,
+                      card=card_line()), "chip_turns.json")
+    return med
+
+
 def main(argv=()):
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "False)", file=sys.stderr)
         return 1
+    if "--turns" in argv:  # parent and this tree in turns, no result line
+        med = turns(argv[argv.index("--turns") + 1])
+        card = card_line()
+        sys.path.insert(0, ROOT)
+        from pomfret_tpu_torch.tools.probes import PROBES
+        k1 = {k for k in med["C"]["entries"]
+              if PROBES[tuple(k.split())].kernel == "probe_row_copy"}
+        for tag in ("P", "C"):
+            m = med[tag]
+            say("turns", f"{tag} medians: methphase {m['walls_s']:.3f} s "
+                f"(quartiles {m['walls_quartiles'][0]:.3f}-"
+                f"{m['walls_quartiles'][1]:.3f}); stile device us/iteration "
+                + ", ".join(f"{k} {v:.4f}" for k, v in m["stile"].items())
+                + "; row_copy device us "
+                + ", ".join(f"{k} {v:.2f}" for k, v in m["entries"].items()
+                            if k in k1)
+                + f"; {card}")
+        return 0
     os.environ["POMFRET_NO_HOST_FALLBACK"] = "1"
     sys.path.insert(0, ROOT)
     import pomfret_tpu_torch  # noqa: F401  (absent beside a lone script)
@@ -961,6 +1117,13 @@ def main(argv=()):
     say("build", f"{os.path.relpath(lib, ROOT)} (nvcc "
         f"{' '.join(_build.NVCC_FLAGS)}) and {native_path} (g++) in "
         f"{report['build_s']:.1f} s")
+
+    if "--only-probes" in argv:  # phase 3b alone, for quick chip calls
+        t0 = time.perf_counter()
+        report["probes"] = pb = phase_probes(dev)
+        say_probes(pb, time.perf_counter() - t0, card)
+        write_report(report, "chip_smoke_probes.json")
+        return 0
 
     kv = phase_kernel_vs_plain(dev)
     report["kernel_vs_plain"] = kv
@@ -1002,28 +1165,12 @@ def main(argv=()):
             f"placement over the fixtures {kv['step_placements'][name]}; "
             f"{card}")
     if "--only-kernels" in argv:  # phase 3 alone, for quick chip calls
-        out_dir = os.path.join(ROOT, "chiprun_out")
-        os.makedirs(out_dir, exist_ok=True)
-        with open(os.path.join(out_dir, "chip_smoke_kernels.json"), "w") as f:
-            json.dump(report, f, indent=1, default=str)
+        write_report(report, "chip_smoke_kernels.json")
         return 0
 
     t0 = time.perf_counter()
     report["probes"] = pb = phase_probes(dev)
-    st = pb["stile"]
-    say("probes", f"{len(pb['entries'])} tools/ probe entries == their "
-        f"oracles and == the plain versions (max |d| "
-        f"{max(pb['max_abs_err'].values())}); launches {pb['launches']}; "
-        "stile at (32,16,1536), range [128,640), per call full-S / tiled-S: "
-        + "; ".join(
-            f"{stem} {st[stem + ' full']['us_per_call']:.1f} / "
-            f"{st[stem + ' tiled']['us_per_call']:.1f} us (device "
-            f"{st[stem + ' full']['device_us_per_call']:.1f} / "
-            f"{st[stem + ' tiled']['device_us_per_call']:.1f} us, "
-            f"{st[stem + ' full']['device_us_per_iter']:.3f} / "
-            f"{st[stem + ' tiled']['device_us_per_iter']:.3f} us per "
-            "iteration)" for stem in ("probe_stile", "probe_stile2"))
-        + f"; {time.perf_counter() - t0:.1f} s; {card}")
+    say_probes(pb, time.perf_counter() - t0, card)
 
     work = tempfile.mkdtemp(prefix="chip_smoke_")
     t0 = time.perf_counter()
@@ -1250,10 +1397,7 @@ def main(argv=()):
                     or m.startswith(("jax.", "pomfret_tpu.")))
     check(not loaded, f"the JAX package or jax was loaded: {loaded}")
 
-    out_dir = os.path.join(ROOT, "chiprun_out")
-    os.makedirs(out_dir, exist_ok=True)
-    with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
-        json.dump(report, f, indent=1, default=str)
+    write_report(report, "chip_smoke.json")
     csrc = "pomfret_tpu_torch/kernels/csrc/"
     bnd = kv["bounds"]
     # library_ms is null for each: no single PyTorch call computes a greedy

@@ -117,10 +117,11 @@ def get_lib() -> ctypes.CDLL:
                     ("pomfret_score_commit_launch",
                      [ci] + [vp] * 8 + [ci] * 6),
                     ("pomfret_probe_row_copy_launch",
-                     [ci] + [vp] * 6 + [ci] * 6),
+                     [ci] + [vp] * 6 + [ci] * 8),
                     ("pomfret_probe_lane_vec_launch", [vp] * 3 + [ci] * 5),
                     ("pomfret_probe_v3_loop_launch", [vp] * 3 + [ci] * 5),
-                    ("pomfret_probe_stile_launch", [vp] * 4 + [ci] * 6)):
+                    ("pomfret_probe_stile_launch", [vp] * 4 + [ci] * 8),
+                    ("pomfret_probe_stile_ratio_launch", [vp] * 2 + [ci] * 3)):
                 fn = getattr(lib, name)
                 fn.restype = ci
                 fn.argtypes = argtypes + [vp]  # the stream last

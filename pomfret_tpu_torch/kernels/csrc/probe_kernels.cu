@@ -11,10 +11,9 @@
 //  - row_copy_kernel (probe_dma.py:28, probe_dma2.py:34/48, probe_dma3.py:26,
 //    probe_dma4.py:30/49, probe_dma5.py:24, probe_dma6.py:30,
 //    probe_v3_parts.py:88): per lane, a bulk async copy (cp.async.bulk
-//    completing on an mbarrier) of W rows at a row read from device memory
+//    completing on mbarriers) of W rows at a row read from device memory
 //    into a shared stage, placement of the stage at the lane's slot of a
-//    zero-filled (NB, S) shared buffer, and an int32 sum per lane and over
-//    all lanes (by the last block to finish);
+//    zero (NB, S) buffer, and an int32 sum per lane and over all lanes;
 //  - lane_vec_kernel (probe_v3_parts.py:31/45/66/123): per-lane row minima
 //    kept in shared memory and read back at a static or runtime index, or
 //    moved by bulk copies through global memory into a second shared array
@@ -28,24 +27,34 @@
 //    for n_iter iterations accumulated in f32.
 //
 // What bounds them on an H100: every probe shape is tiny (at most 512 KB
-// moved, 0.8 M sites per iteration), so each launch costs its latency: a
-// few microseconds, against bounds well under a microsecond. The 400
-// iterations of probe_stile2 make the one kernel whose time is its work;
-// each iteration of a block ends in a block-wide reduction, so its time is
-// the sites per thread plus two barriers, iteration after iteration.
+// moved, 0.8 M sites per iteration), so a launch costs its latency, a few
+// microseconds against bounds well under one, and what a block does before
+// its first useful byte (fills, barriers, a counter in global memory) adds
+// to it. The 400 iterations of probe_stile2 make the one kernel whose time
+// is its work, and three things bound it: the chain of iterations (each
+// ends in a reduction whose result the next one's f32 sum waits for, a
+// cost per iteration that no site count changes), the issue of the divides (one
+// per kept site and iteration: 67 M in all, ~16 us at the MUFU unit's 16
+// reciprocals a clock an SM; the reciprocal-and-FMA quotient takes no MUFU
+// op), and the instructions per visited site (~18: two shared loads, the
+// quotient, the tests, the f64 add), issued by one warp per sub-partition.
 //
-// What the design does about it: one block per lane (or per (b, k) for the
-// ratio sum), the copy issued by one thread and waited on by all; nothing
-// is tuned. Scratch is zero-filled: the TPU probes read scratch rows they
-// never wrote, whose value Mosaic leaves undefined.
+// row_copy_kernel and stile_kernel are the second designs (the first ones:
+// one block per lane or per (b, k), zero-filled scratch, block-wide
+// reductions). The other two are the first designs, nothing tuned.
 //
-// Numerics: the integer sums are exact. The ratios are f32 IEEE divisions
-// (-prec-div=true, no fast math, no FMA contraction), summed in f64 and
-// rounded once to f32: every ratio c0 / (7 + i 1e-6) with small integer c0
-// is an f32 with the same few exponents, so the f64 sum is exact and the
-// full-S and tiled-S results are equal bit for bit, whatever the order.
+// Numerics: the integer sums are exact (int32, wrapping as the plain
+// versions' do). The ratios are f32 IEEE quotients (-prec-div=true, no
+// fast math, no FMA contraction), summed in f64 and rounded once to f32:
+// every ratio c0 / (7 + i 1e-6) with small integer c0 is an f32 with the
+// same few exponents, so the f64 sum is exact and the full-S and tiled-S
+// results are equal bit for bit, whatever the order (which lets each warp
+// sum in its own order; tests/test_torch_probes.py pins it on the plain
+// version by permuting the sites).
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <atomic>
 
 #include "common.cuh"
 
@@ -67,8 +76,9 @@ __device__ __forceinline__ void bulk_store_s2g(void* dst, const void* src,
   asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
 }
 
-// Block-wide sums, returned to every thread (the leading barrier keeps a
-// previous call's readers of `red` ahead of this call's writers).
+// Block-wide sum of 256-thread blocks, returned to every thread (the
+// leading barrier keeps a previous call's readers of `red` ahead of this
+// call's writers).
 __device__ __forceinline__ int block_sum(int v, int* red) {
   v = warp_sum(v);
   __syncthreads();
@@ -79,92 +89,195 @@ __device__ __forceinline__ int block_sum(int v, int* red) {
   return r;
 }
 
-__device__ __forceinline__ double block_sum(double v, double* red) {
-  v = warp_sum(v);
-  __syncthreads();
-  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
-  __syncthreads();
-  double r = 0.0;
-  for (int w = 0; w < kWarps; ++w) r += red[w];
-  return r;
+__device__ __forceinline__ long long floor_div(long long a, long long b) {
+  const long long q = a / b;
+  return (a % b != 0 && (a < 0) != (b < 0)) ? q - 1 : q;
 }
 
-__device__ __forceinline__ int floor_div(int a, int b) {
-  const int q = a / b;
-  return (a % b != 0 && (a < 0) != (b < 0)) ? q - 1 : q;
+// Lets `kernel` launch in clusters above the portable 8 blocks on the
+// current device; like allow_optin, once per (kernel, device) through the
+// bits of `done`. Returns a CUDA error code.
+template <typename Kernel>
+inline int allow_wide_clusters(Kernel* kernel,
+                               std::atomic<unsigned long long>& done) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const unsigned long long bit = dev < 64 ? 1ull << dev : 0ull;
+  if (bit && (done.load(std::memory_order_acquire) & bit)) return 0;
+  e = cudaFuncSetAttribute(kernel,
+                           cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  done.fetch_or(bit, std::memory_order_release);
+  return 0;
 }
 
 // ---------------------------------------------------------------------------
 // K1: src (L,R,S) int8|int32; rows, slots (L,) int32; lane_sum (L,) int32;
 // total (1,) int32; buf_out (L,NB,S) of the source type, or null. Lane l
 // copies rows [rows[l], rows[l] + W) of src[l] into its stage when they lie
-// inside [0, R) (else the stage stays zero), writes the stage into rows
-// [slots[l], slots[l] + W) of its zero-filled buffer when they lie inside
+// inside [0, R) (else the stage is zero), places the stage at rows
+// [slots[l], slots[l] + W) of a zero (NB, S) buffer when they lie inside
 // [0, NB) (NB may be 0: no buffer), and sums its stage (sum_stage) or its
-// buffer. The last block to finish adds up the lanes into total. The
-// buffer is written back only when buf_out is given, to check placement:
-// no probe returns it. Shared memory: the barrier (128 bytes), the stage
-// (W*S), the buffer (NB*S).
+// buffer; total sums the lanes. The buffer is written back only when
+// buf_out is given, to check placement: no probe returns it.
 //
-// Blocks of the running launch that have finished; the last block resets
-// it to 0 (atomicInc wraps), so launches on one stream need no zeroing.
-// Two launches in flight at once on different streams would share it.
-__device__ unsigned int g_row_copy_done = 0;
+// One block per lane, all L blocks one thread block cluster (up to 8
+// portably, 16 with the non-portable attribute). Besides 256 bytes of
+// barriers and sums, only the stage lives in shared memory (W*S
+// elements): a stage out of range is never read, so
+// nothing is zero-filled, and the buffer is never built, since its sum is
+// the stage's where the stage is placed and 0 elsewhere (with buf_out its
+// rows are written straight from the stage or as zeros). Thread 0 issues
+// the copy as `chunks` bulk copies of chunk_bytes (the last one shorter),
+// each on its own mbarrier, and the threads sum each chunk (16 bytes a
+// load; __dp4a for int8) as soon as it lands, while the next ones are in
+// flight. The lane sums meet in block 0 through distributed shared
+// memory: each block stores its sum into block 0's shared memory and
+// arrives on block 0's mbarrier, then leaves (a cluster barrier arrived at
+// on entry and waited on before that store orders block 0's barrier
+// initialisation first), which costs less than two full cluster barriers
+// around a read of every block's shared memory. So no state outlives a
+// launch, and two launches in flight on two streams never share a
+// counter.
+constexpr int kCopyChunks = 4;
+
+template <typename T>
+__device__ __forceinline__ int sum_vec(const int4& v) {
+  if constexpr (sizeof(T) == 1) {
+    constexpr int kOnes = 0x01010101;  // the four signed bytes, summed
+    return __dp4a(v.x, kOnes, __dp4a(v.y, kOnes, __dp4a(v.z, kOnes,
+                                                        __dp4a(v.w, kOnes, 0))));
+  } else {
+    return v.x + v.y + v.z + v.w;
+  }
+}
+
+// Dynamic shared memory of a block (no static part, which would leave the
+// opt-in maximum of allow_optin out of reach): the chunks' barriers, the
+// total's barrier, the warp sums and the lanes' sums (block 0's), then
+// the stage at byte kRowCopyHead.
+constexpr int kRowCopyHead = 256;
+constexpr int kMaxClusterLanes = 16;
+
+// The shared::cluster address of `p` (this block's shared memory) in the
+// block of cluster rank `rank`.
+__device__ __forceinline__ uint32_t cluster_addr(const void* p, int rank) {
+  uint32_t a;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(a)
+               : "r"(smem_u32(p)), "r"(rank));
+  return a;
+}
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 row_copy_kernel(const T* __restrict__ src, const int32_t* __restrict__ rows,
                 const int32_t* __restrict__ slots, T* __restrict__ buf_out,
                 int32_t* __restrict__ lane_sum, int32_t* __restrict__ total,
-                int R, int S, int W, int NB, int sum_stage) {
+                int R, int S, int W, int NB, int sum_stage, int chunks,
+                int chunk_bytes) {
   extern __shared__ __align__(128) unsigned char smem[];
-  __shared__ int red[kWarps];
-  __shared__ bool last;
-  uint64_t* bar = reinterpret_cast<uint64_t*>(smem);
-  T* stage = reinterpret_cast<T*>(smem + 128);
-  T* buf = stage + static_cast<size_t>(W) * S;
-  const int l = blockIdx.x, tid = threadIdx.x;
-  const int row = rows[l], slot = slots[l];
-  const int n_stage = W * S, n_buf = NB * S;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem);  // kCopyChunks
+  uint64_t* done = bars + kCopyChunks;                 // block 0's
+  int* red = reinterpret_cast<int*>(smem + 48);        // kWarps
+  int* sums = red + kWarps;                            // block 0's, L
+  unsigned char* stage = smem + kRowCopyHead;
+  // the grid is one cluster along x: a block's index is its rank in it
+  const int l = blockIdx.x, L = gridDim.x, tid = threadIdx.x;
+  const int bytes = W * S * static_cast<int>(sizeof(T));
 
-  for (int i = tid; i < n_stage; i += kThreads) stage[i] = T(0);
-  for (int i = tid; i < n_buf; i += kThreads) buf[i] = T(0);
-  fence_proxy_async();
-  if (tid == 0) mbar_init(bar);
-  __syncthreads();
-
-  if (row >= 0 && row <= R - W) {
-    if (tid == 0)
-      bulk_copy_g2s(stage, src + (static_cast<size_t>(l) * R + row) * S,
-                    static_cast<uint32_t>(n_stage * sizeof(T)), bar);
-    mbar_wait(bar, 0);
-  }
-  if (slot >= 0 && slot <= NB - W)
-    for (int i = tid; i < n_stage; i += kThreads)
-      buf[static_cast<size_t>(slot) * S + i] = stage[i];
-  __syncthreads();
-
-  const T* sum_src = sum_stage ? stage : buf;
-  const int n_sum = sum_stage ? n_stage : n_buf;
-  int acc = 0;
-  for (int i = tid; i < n_sum; i += kThreads) acc += static_cast<int>(sum_src[i]);
-  if (buf_out != nullptr) {
-    T* out = buf_out + static_cast<size_t>(l) * n_buf;
-    for (int i = tid; i < n_buf; i += kThreads) out[i] = buf[i];
-  }
-  acc = block_sum(acc, red);
+  // block 0's barrier takes one arrival from each block; the cluster
+  // barrier, arrived at here and waited on before the first remote
+  // arrival, orders its initialisation before them. The chunks' barriers
+  // are initialised while the row index is on its way.
   if (tid == 0) {
-    lane_sum[l] = acc;
-    __threadfence();  // this lane's sum is visible before it is counted
-    last = atomicInc(&g_row_copy_done, gridDim.x - 1) == gridDim.x - 1;
+    if (l == 0) {
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                       smem_u32(done)),
+                   "r"(L)
+                   : "memory");
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+    for (int c = 0; c < chunks; ++c) mbar_init(bars + c);
   }
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+  const int row = rows[l], slot = slots[l];
+  const bool copy = row >= 0 && row <= R - W;
+  const bool place = slot >= 0 && slot <= NB - W;
+  __syncthreads();  // the chunks' barriers before anyone waits on them
+
+  int acc = 0;
+  if (copy) {
+    if (tid == 0) {
+      const unsigned char* from = reinterpret_cast<const unsigned char*>(
+          src + (static_cast<size_t>(l) * R + row) * S);
+      for (int c = 0; c < chunks; ++c) {
+        const int off = c * chunk_bytes;
+        bulk_copy_g2s(stage + off, from + off,
+                      static_cast<uint32_t>(min(chunk_bytes, bytes - off)),
+                      bars + c);
+      }
+    }
+    const bool summed = sum_stage || place;
+    for (int c = 0; c < chunks; ++c) {
+      mbar_wait(bars + c, 0);
+      if (!summed) continue;
+      const int off = c * chunk_bytes;
+      const int4* v = reinterpret_cast<const int4*>(stage + off);
+      const int nv = min(chunk_bytes, bytes - off) / 16;
+      for (int i = tid; i < nv; i += kThreads) acc += sum_vec<T>(v[i]);
+    }
+  }
+  if (buf_out != nullptr) {
+    // rows [slot, slot + W) from the stage where it is placed, zeros
+    // elsewhere; 16 bytes a store (S * sizeof(T) is a multiple of 16)
+    const int row_vecs = S * static_cast<int>(sizeof(T)) / 16;
+    const int n = NB * row_vecs;
+    const int p0 = copy && place ? slot * row_vecs : n;
+    const int p1 = copy && place ? p0 + bytes / 16 : n;
+    const int4* v = reinterpret_cast<const int4*>(stage);
+    int4* out = reinterpret_cast<int4*>(buf_out + static_cast<size_t>(l) * NB * S);
+    for (int i = tid; i < n; i += kThreads)
+      out[i] = (i >= p0 && i < p1) ? v[i - p0] : make_int4(0, 0, 0, 0);
+  }
+
+  acc = warp_sum(acc);
+  if ((tid & 31) == 0) red[tid >> 5] = acc;
   __syncthreads();
-  if (!last) return;
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+  if (tid != 0) return;
+  int s = 0;
+  for (int w = 0; w < kWarps; ++w) s += red[w];
+  lane_sum[l] = s;
+  // this lane's sum into block 0's sums[l], then one arrival on its
+  // barrier (release: the store is seen by whoever sees the arrival);
+  // every block but 0 is then done and leaves
+  asm volatile("st.shared::cluster.u32 [%0], %1;\n" ::"r"(
+                   cluster_addr(sums + l, 0)),
+               "r"(s)
+               : "memory");
+  asm volatile(
+      "mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];\n" ::"r"(
+          cluster_addr(done, 0))
+      : "memory");
+  if (l != 0) return;
+  uint32_t ready = 0;
+  while (!ready) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], "
+        "0;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(ready)
+        : "r"(smem_u32(done))
+        : "memory");
+  }
   int t = 0;
-  for (int i = tid; i < static_cast<int>(gridDim.x); i += kThreads)
-    t += __ldcg(lane_sum + i);  // from L2, where the other blocks wrote
-  t = block_sum(t, red);
-  if (tid == 0) *total = t;
+  for (int j = 0; j < L; ++j) t += sums[j];
+  *total = t;
 }
 
 // ---------------------------------------------------------------------------
@@ -278,65 +391,304 @@ v3_loop_kernel(const int32_t* __restrict__ ids, const int32_t* __restrict__ hp,
 
 // ---------------------------------------------------------------------------
 // K4: cnt (B,2D,S) f32, cids (B,NC,S) int32, ranges (B,2) int32 [lo, hi),
-// out (B,NC) f32. One block per (b, k). c0[s] = cnt[b, 2 cids[b,k,s], s]
-// where 0 <= cids < D, else 0. For i < n_iter: score_i = the f64 sum of
-// the f32 ratios c0 / (7 + f32(i) 1e-6) over the sites with c0 > 0 and
-// lo <= s < hi, rounded once to f32; out = the f32 sum of the scores in
-// iteration order. tiled: only the sites of the 256-wide tiles from
-// floor(min lo / 256) to ceil(max hi / 256) over the whole batch.
-__global__ void __launch_bounds__(kThreads)
+// out (B,NC) f32. c0[s] = cnt[b, 2 cids[b,k,s], s] where 0 <= cids < D,
+// else 0. For i < n_iter: score_i = the f64 sum of the f32 ratios
+// c0 / (7 + f32(i) 1e-6) over the sites with c0 > 0 and lo <= s < hi,
+// rounded once to f32; out = the f32 sum of the scores in iteration order.
+// tiled: only the sites of the 256-wide tiles from floor(min lo / 256) to
+// ceil(max hi / 256) over the whole batch.
+//
+// One warp per (b, k), up to kStileWarps k's of one b per block (16 k's:
+// 128 blocks for 132 SMs, one warp on each SM sub-partition). Each block
+// stages its sites [s0, s1) once: the D even count planes of its b and
+// the id rows of its k's, by bulk copies on one mbarrier when every row
+// is 16-byte aligned (S % 4 == 0), else by plain loads. Each iteration
+// then gathers c0 from the staged planes at the staged ids (the loop
+// kernel's table changes after every commit, so nothing is kept from one
+// iteration to the next), 16 sites a lane at a time in straight-line
+// code (stile_sites), with an accumulator each (the f64 sum is exact, so
+// any order gives the same bits), and ends in a warp's shuffles: no block
+// barrier inside the iteration loop. A lone warp on its sub-partition
+// hides no latency with another warp's work, so the sites of a lane are
+// what overlaps. The iterations of a (b, k) stay in
+// order. The quotient is __fdiv_rn (kRcp false), or c0 times the
+// iteration's correctly rounded reciprocal with one FMA correction (kRcp
+// true), which is the IEEE quotient wherever c0 and the quotient are
+// normal (the CPU tests emulate it exactly and the card tests run it, for
+// every integer c0 in [1, 2^16] against all 400 divisors and for random
+// normal c0); a block whose staged counts leave that range takes
+// __fdiv_rn throughout.
+constexpr int kStileWarps = 4;
+
+// Dynamic shared memory of one block: the mbarrier (128 bytes), then D
+// count planes, a plane of zeros (where an id outside [0, D) reads its
+// count) and kpb id rows, of align_up(S, 4) elements each, site s0 at
+// element 0 (so the size does not depend on the ranges).
+__host__ __device__ inline size_t stile_smem_bytes(int S, int D, int kpb) {
+  return 128 + static_cast<size_t>(D + 1 + kpb) * align_up(S, 4) * 4;
+}
+
+// c0 / div by the reciprocal rdiv = __frcp_rn(div) and one FMA
+// correction: rounded to nearest even where stile_rcp_exact(c0) and div
+// lies in [1, 2^12] (c0 and the quotient normal).
+__device__ __forceinline__ float stile_rcp_quotient(float c0, float div,
+                                                    float rdiv) {
+  const float q = __fmul_rn(c0, rdiv);
+  const float e = __fmaf_rn(-q, div, c0);  // the remainder, rounded once
+  return __fmaf_rn(e, rdiv, q);
+}
+
+__device__ __forceinline__ bool stile_rcp_exact(float c0) {
+  return c0 >= 0x1p-100f && c0 <= 0x1p100f;
+}
+
+// c0 / div rounded to nearest even, as stile_kernel<kRcp> takes it.
+template <bool kRcp>
+__device__ __forceinline__ float stile_ratio(float c0, float div,
+                                             float rdiv) {
+  if (kRcp && stile_rcp_exact(c0)) return stile_rcp_quotient(c0, div, rdiv);
+  return __fdiv_rn(c0, div);
+}
+
+__device__ __forceinline__ float stile_divisor(int i) {
+  return __fadd_rn(7.f, __fmul_rn(static_cast<float>(i), 1e-6f));
+}
+
+// Warp-wide: the U sites base + lane + 32 u of a lane (kTail: some past
+// n) added to its sums p[u], the quotient by reciprocal and FMA (kRcp) or
+// __fdiv_rn. With kRcp the code is straight-line, so that all the sites'
+// loads and quotients are in flight at once: every id read first, then
+// every count (an id outside [0, D), or a site past n, reads the zero
+// plane), then the quotients, and the kept ones (c0 > 0, lo <= s < hi:
+// (s - lo) below hi - lo, as unsigned) added; a site not kept adds 0.
+template <int U, bool kRcp, bool kTail>
+__device__ __forceinline__ void stile_sites(const int32_t* my,
+                                            const float* planes, int Sp,
+                                            int D, int n, int base,
+                                            unsigned rel, unsigned width,
+                                            float div, float rdiv,
+                                            double* p) {
+  const int lane = threadIdx.x & 31;
+  int i[U], d[U];
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    i[u] = base + lane + 32 * u;
+    if (kTail && i[u] >= n) i[u] = n - 1;
+    d[u] = static_cast<int>(
+        min(static_cast<unsigned>(my[i[u]]), static_cast<unsigned>(D)));
+    if (kTail && base + lane + 32 * u >= n) d[u] = D;
+  }
+  float c0[U];
+#pragma unroll
+  for (int u = 0; u < U; ++u)
+    c0[u] = planes[static_cast<size_t>(d[u]) * Sp + i[u]];
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    const bool keep = c0[u] > 0.f && rel + 32u * u + lane < width;
+    if (kRcp) {
+      // the f64 of the quotient (normal and positive, or not kept: 0)
+      // built on the integer units: F2F.F64.F32 issues at a quarter rate
+      const uint32_t bq = __float_as_uint(stile_rcp_quotient(c0[u], div, rdiv));
+      const int hi = keep ? static_cast<int>((bq >> 3) + 0x38000000u) : 0;
+      const int lo = keep ? static_cast<int>(bq << 29) : 0;
+      p[u] += __hiloint2double(hi, lo);
+    } else if (keep) {
+      p[u] += static_cast<double>(__fdiv_rn(c0[u], div));
+    }
+  }
+}
+
+// Warp-wide: n_iter iterations of the ratio sum over the staged sites
+// [0, n) of one (b, k); each iteration's f64 sum is rounded to f32 and
+// added to the result in order. Sites go 16 to a lane at a time, then 4.
+template <bool kRcp>
+__device__ __forceinline__ float stile_iterations(const int32_t* my,
+                                                  const float* planes,
+                                                  int Sp, int D, int n,
+                                                  unsigned rel0,
+                                                  unsigned width,
+                                                  int n_iter) {
+  constexpr int kBig = 16, kSmall = 4;
+  float acc = 0.f;
+  for (int it = 0; it < n_iter; ++it) {
+    const float div = stile_divisor(it);
+    const float rdiv = kRcp ? __frcp_rn(div) : 0.f;
+    double p[kBig];
+#pragma unroll
+    for (int u = 0; u < kBig; ++u) p[u] = 0.0;
+    int base = 0;
+    for (; base + 32 * kBig <= n; base += 32 * kBig)
+      stile_sites<kBig, kRcp, false>(my, planes, Sp, D, n, base, rel0 + base,
+                                     width, div, rdiv, p);
+    for (; base + 32 * kSmall <= n; base += 32 * kSmall)
+      stile_sites<kSmall, kRcp, false>(my, planes, Sp, D, n, base,
+                                       rel0 + base, width, div, rdiv, p);
+    if (base < n)
+      stile_sites<kSmall, kRcp, true>(my, planes, Sp, D, n, base, rel0 + base,
+                                      width, div, rdiv, p);
+    // a tree, not a chain (written out: a loop over the levels puts p on
+    // the stack)
+    const double s0 = (p[0] + p[1]) + (p[2] + p[3]);
+    const double s1 = (p[4] + p[5]) + (p[6] + p[7]);
+    const double s2 = (p[8] + p[9]) + (p[10] + p[11]);
+    const double s3 = (p[12] + p[13]) + (p[14] + p[15]);
+    acc = __fadd_rn(acc, __double2float_rn(warp_sum((s0 + s1) + (s2 + s3))));
+  }
+  return acc;
+}
+
+template <bool kRcp>
+__global__ void __launch_bounds__(kStileWarps * 32)
 stile_kernel(const float* __restrict__ cnt, const int32_t* __restrict__ cids,
              const int32_t* __restrict__ ranges, float* __restrict__ out,
-             int B, int NC, int S, int D, int tiled, int n_iter) {
-  __shared__ int red[kWarps];
-  __shared__ double dred[kWarps];
-  const int k = blockIdx.x, b = blockIdx.y, tid = threadIdx.x;
+             int B, int NC, int S, int D, int tiled, int n_iter, int bulk) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem);
+  const int Sp = static_cast<int>(align_up(S, 4));
+  float* planes = reinterpret_cast<float*>(smem + 128);
+  int32_t* ids =
+      reinterpret_cast<int32_t*>(planes + static_cast<size_t>(D + 1) * Sp);
+  const int kpb = blockDim.x >> 5, w = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int b = blockIdx.y, k0 = blockIdx.x * kpb;
+  const int nk = min(kpb, NC - k0);
+
+  // the staged sites, computed alike by every warp (no barrier)
   int s0 = 0, s1 = S;
   if (tiled) {
     int mn = INT32_MAX, mx = INT32_MIN;
-    for (int j = tid; j < B; j += kThreads) {
+    for (int j = lane; j < B; j += 32) {
       mn = min(mn, ranges[2 * j]);
       mx = max(mx, ranges[2 * j + 1]);
     }
-    mn = block_min(mn, red);
-    mx = block_max(mx, red);
-    s0 = max(floor_div(mn, kTile), 0) * kTile;
-    s1 = min(floor_div(mx + kTile - 1, kTile) * kTile, S);
+    mn = warp_min(mn);
+    mx = warp_max(mx);
+    s0 = static_cast<int>(max(floor_div(mn, kTile), 0ll) * kTile);
+    s1 = static_cast<int>(
+        min(floor_div(static_cast<long long>(mx) + kTile - 1, kTile) * kTile,
+            static_cast<long long>(S)));
   }
-  const int lo = ranges[2 * b], hi = ranges[2 * b + 1];
-  const int32_t* crow = cids + (static_cast<size_t>(b) * NC + k) * S;
-  const float* cb = cnt + static_cast<size_t>(b) * 2 * D * S;
-  float acc = 0.f;
-  for (int i = 0; i < n_iter; ++i) {
-    const float div = __fadd_rn(7.f, __fmul_rn(static_cast<float>(i), 1e-6f));
-    double part = 0.0;
-    for (int s = s0 + tid; s < s1; s += kThreads) {
-      const int d = crow[s];
-      const float c0 =
-          (d >= 0 && d < D) ? cb[static_cast<size_t>(2 * d) * S + s] : 0.f;
-      if (c0 > 0.f && s >= lo && s < hi)
-        part += static_cast<double>(__fdiv_rn(c0, div));
+  const int n = s1 > s0 ? s1 - s0 : 0;
+  if (n == 0) {
+    if (w < nk && lane == 0) out[static_cast<size_t>(b) * NC + k0 + w] = 0.f;
+    return;
+  }
+  const float* cb = cnt + static_cast<size_t>(b) * 2 * D * S + s0;
+  const int32_t* crow = cids + (static_cast<size_t>(b) * NC + k0) * S + s0;
+  for (int i = threadIdx.x; i < n; i += blockDim.x)
+    planes[static_cast<size_t>(D) * Sp + i] = 0.f;
+  if (bulk) {
+    const uint32_t row_bytes = static_cast<uint32_t>(n) * 4;
+    if (threadIdx.x == 0) mbar_init(bar);
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      mbar_arrive_expect_tx(bar, row_bytes * (D + nk));
+      for (int d = 0; d < D; ++d)
+        bulk_g2s(planes + static_cast<size_t>(d) * Sp,
+                 cb + static_cast<size_t>(2 * d) * S, row_bytes, bar);
+      for (int j = 0; j < nk; ++j)
+        bulk_g2s(ids + static_cast<size_t>(j) * Sp,
+                 crow + static_cast<size_t>(j) * S, row_bytes, bar);
     }
-    const double sum = block_sum(part, dred);
-    acc = __fadd_rn(acc, __double2float_rn(sum));
+    mbar_wait(bar, 0);
+  } else {
+    for (int d = 0; d < D; ++d)
+      for (int i = threadIdx.x; i < n; i += blockDim.x)
+        planes[static_cast<size_t>(d) * Sp + i] =
+            cb[static_cast<size_t>(2 * d) * S + i];
+    for (int j = 0; j < nk; ++j)
+      for (int i = threadIdx.x; i < n; i += blockDim.x)
+        ids[static_cast<size_t>(j) * Sp + i] = crow[static_cast<size_t>(j) * S + i];
   }
-  if (tid == 0) out[static_cast<size_t>(b) * NC + k] = acc;
+  // the reciprocal's quotient is exact for every count the block may keep
+  // (those of the sites in [lo, hi); always so for counts), or every
+  // quotient is by __fdiv_rn
+  const int lo = ranges[2 * b], hi = ranges[2 * b + 1];
+  int inexact = 0;
+  if (kRcp) {
+    const int i0 =
+        static_cast<int>(max(static_cast<long long>(lo) - s0, 0ll));
+    const int i1 = static_cast<int>(
+        min(static_cast<long long>(hi) - s0, static_cast<long long>(n)));
+    for (int d = 0; d < D; ++d)
+      for (int i = i0 + threadIdx.x; i < i1; i += blockDim.x) {
+        const float c = planes[static_cast<size_t>(d) * Sp + i];
+        inexact |= c > 0.f && !stile_rcp_exact(c);
+      }
+  }
+  inexact = __syncthreads_or(inexact);
+  if (w >= nk) return;
+
+  // s in [lo, hi) <=> (s - lo) < (hi - lo) in 32-bit unsigned arithmetic
+  const unsigned width =
+      hi > lo ? static_cast<unsigned>(hi) - static_cast<unsigned>(lo) : 0u;
+  const unsigned rel0 = static_cast<unsigned>(s0) - static_cast<unsigned>(lo);
+  const int32_t* my = ids + static_cast<size_t>(w) * Sp;
+  const float acc =
+      kRcp && !inexact
+          ? stile_iterations<true>(my, planes, Sp, D, n, rel0, width, n_iter)
+          : stile_iterations<false>(my, planes, Sp, D, n, rel0, width, n_iter);
+  if (lane == 0) out[static_cast<size_t>(b) * NC + k0 + w] = acc;
+}
+
+// out (n_iter, n) f32: stile_kernel's quotient of each c0 (n) by each
+// iteration's divisor; the check of its division, not a probe.
+template <bool kRcp>
+__global__ void stile_ratio_kernel(const float* __restrict__ c0,
+                                   float* __restrict__ out, int n,
+                                   int n_iter) {
+  const size_t total = static_cast<size_t>(n) * n_iter;
+  for (size_t x = blockIdx.x * static_cast<size_t>(blockDim.x) + threadIdx.x;
+       x < total; x += static_cast<size_t>(gridDim.x) * blockDim.x) {
+    const float div = stile_divisor(static_cast<int>(x / n));
+    out[x] = stile_ratio<kRcp>(c0[x % n], div, kRcp ? __frcp_rn(div) : 0.f);
+  }
 }
 
 template <typename T>
 int launch_row_copy(const void* src, const void* rows, const void* slots,
                     void* buf, void* lane_sum, void* total, int L, int R,
-                    int S, int W, int NB, int sum_stage, cudaStream_t st) {
-  const size_t shm = 128 + static_cast<size_t>(W + NB) * S * sizeof(T);
-  cudaError_t e = cudaFuncSetAttribute(
-      row_copy_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(shm));
+                    int S, int W, int NB, int sum_stage, int chunks,
+                    int chunk_bytes, cudaStream_t st) {
+  static std::atomic<unsigned long long> optin{0}, wide{0};
+  int rc = allow_optin(row_copy_kernel<T>, optin);
+  if (rc == 0 && L > 8) rc = allow_wide_clusters(row_copy_kernel<T>, wide);
+  if (rc != 0) return rc;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(L);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = kRowCopyHead + static_cast<size_t>(W) * S * sizeof(T);
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = L;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t e = cudaLaunchKernelEx(
+      &cfg, row_copy_kernel<T>, static_cast<const T*>(src),
+      static_cast<const int32_t*>(rows), static_cast<const int32_t*>(slots),
+      static_cast<T*>(buf), static_cast<int32_t*>(lane_sum),
+      static_cast<int32_t*>(total), R, S, W, NB, sum_stage, chunks,
+      chunk_bytes);
   if (e != cudaSuccess) return static_cast<int>(e);
-  row_copy_kernel<T><<<L, kThreads, shm, st>>>(
-      static_cast<const T*>(src), static_cast<const int32_t*>(rows),
-      static_cast<const int32_t*>(slots), static_cast<T*>(buf),
-      static_cast<int32_t*>(lane_sum), static_cast<int32_t*>(total), R, S, W,
-      NB, sum_stage);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <bool kRcp>
+int launch_stile(const void* cnt, const void* cids, const void* ranges,
+                 void* out, int B, int NC, int S, int D, int tiled,
+                 int n_iter, int kpb, cudaStream_t st) {
+  static std::atomic<unsigned long long> optin{0};
+  const int rc = allow_optin(stile_kernel<kRcp>, optin);
+  if (rc != 0) return rc;
+  const int bulk = S % 4 == 0 && reinterpret_cast<uintptr_t>(cnt) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(cids) % 16 == 0;
+  stile_kernel<kRcp><<<dim3((NC + kpb - 1) / kpb, B), 32 * kpb,
+                       stile_smem_bytes(S, D, kpb), st>>>(
+      static_cast<const float*>(cnt), static_cast<const int32_t*>(cids),
+      static_cast<const int32_t*>(ranges), static_cast<float*>(out), B, NC, S,
+      D, tiled, n_iter, bulk);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -344,21 +696,32 @@ int launch_row_copy(const void* src, const void* rows, const void* slots,
 
 // Each launcher launches on `stream` and returns cudaGetLastError() (0 on
 // success); the wrappers check shapes, alignment and the shared-memory size.
+// row_copy: 1 <= L <= 16 lanes (one cluster); the copy in `chunks` (1 to
+// kCopyChunks) pieces of chunk_bytes (a multiple of 16) covering W*S
+// elements (kernels/probes.py row_copy_plan).
 extern "C" int pomfret_probe_row_copy_launch(int elt_bytes, const void* src,
                                              const void* rows,
                                              const void* slots, void* buf,
                                              void* lane_sum, void* total,
                                              int L, int R, int S, int W,
                                              int NB, int sum_stage,
+                                             int chunks, int chunk_bytes,
                                              void* stream) {
-  if (L <= 0) return 0;
+  const long long bytes = static_cast<long long>(W) * S * elt_bytes;
+  if (L < 1 || L > kMaxClusterLanes || chunks < 1 || chunks > kCopyChunks ||
+      chunk_bytes <= 0 || chunk_bytes % 16 ||
+      static_cast<long long>(chunks) * chunk_bytes < bytes ||
+      static_cast<long long>(chunks - 1) * chunk_bytes >= bytes)
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (elt_bytes == 1)
     return launch_row_copy<int8_t>(src, rows, slots, buf, lane_sum, total, L,
-                                   R, S, W, NB, sum_stage, st);
+                                   R, S, W, NB, sum_stage, chunks,
+                                   chunk_bytes, st);
   if (elt_bytes == 4)
     return launch_row_copy<int32_t>(src, rows, slots, buf, lane_sum, total, L,
-                                    R, S, W, NB, sum_stage, st);
+                                    R, S, W, NB, sum_stage, chunks,
+                                    chunk_bytes, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -390,16 +753,33 @@ extern "C" int pomfret_probe_v3_loop_launch(const void* ids, const void* hp,
   return static_cast<int>(cudaGetLastError());
 }
 
+// stile: kpb (1 to kStileWarps) k's a block (kernels/probes.py
+// stile_plan); rcp 1 for the reciprocal-and-FMA quotient, 0 for __fdiv_rn.
 extern "C" int pomfret_probe_stile_launch(const void* cnt, const void* cids,
                                           const void* ranges, void* out,
                                           int B, int NC, int S, int D,
-                                          int tiled, int n_iter,
-                                          void* stream) {
+                                          int tiled, int n_iter, int kpb,
+                                          int rcp, void* stream) {
   if (B <= 0 || NC <= 0) return 0;
-  stile_kernel<<<dim3(NC, B), kThreads, 0,
-                 static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(cnt), static_cast<const int32_t*>(cids),
-      static_cast<const int32_t*>(ranges), static_cast<float*>(out), B, NC, S,
-      D, tiled, n_iter);
+  if (kpb < 1 || kpb > kStileWarps || D < 0 || S < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return rcp ? launch_stile<true>(cnt, cids, ranges, out, B, NC, S, D, tiled,
+                                  n_iter, kpb, st)
+             : launch_stile<false>(cnt, cids, ranges, out, B, NC, S, D, tiled,
+                                   n_iter, kpb, st);
+}
+
+extern "C" int pomfret_probe_stile_ratio_launch(const void* c0, void* out,
+                                                int n, int n_iter, int rcp,
+                                                void* stream) {
+  if (n <= 0 || n_iter <= 0) return 0;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* in = static_cast<const float*>(c0);
+  float* o = static_cast<float*>(out);
+  if (rcp)
+    stile_ratio_kernel<true><<<1024, 256, 0, st>>>(in, o, n, n_iter);
+  else
+    stile_ratio_kernel<false><<<1024, 256, 0, st>>>(in, o, n, n_iter);
   return static_cast<int>(cudaGetLastError());
 }

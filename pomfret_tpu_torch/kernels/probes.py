@@ -7,7 +7,7 @@ each probe and variant to one of them:
 
 - `row_copy` (K1): per lane, a bulk async copy of W rows at a row index
   held in device memory into a staged buffer, its placement at the lane's
-  slot of a zero-filled (NB, S) buffer, and int32 sums (probe_dma*.py,
+  slot of a zero (NB, S) buffer, and int32 sums (probe_dma*.py,
   probe_v3_parts.py dma_dyn);
 - `lane_vec` (K2): per-lane vector and scalar scratch moves and a loop with
   a runtime trip count (probe_v3_parts.py store2d, sload, sload_dyn,
@@ -21,8 +21,8 @@ each probe and variant to one of them:
 Each wrapper launches its kernel for CUDA tensors and counts the launch in
 `<wrapper>.launches`; for CPU tensors it runs the plain version beside it
 (`<name>_plain`, the same function as gathers, scatters, masks and sums,
-called as the wrapper is); any other device raises. Scratch is
-zero-filled, where the TPU probes read scratch rows they never wrote.
+called as the wrapper is); any other device raises. Scratch reads as
+zero where the TPU probes read scratch rows they never wrote.
 """
 from __future__ import annotations
 
@@ -34,6 +34,10 @@ LANE_VEC_MODES = ("store2d", "sload", "sload_dyn", "smem_dma", "whileloop")
 TILE = 256                       # probe_stile.py's TS
 MAX_SHARED_BYTES = 232_448       # one block's shared memory on an H100
 MAX_VEC_LANES = 32               # lane_vec: one warp per lane, one block
+MAX_CLUSTER_LANES = 16           # row_copy: the lanes are one block cluster
+COPY_CHUNKS = 4                  # row_copy: a lane's copy in up to 4 pieces,
+MIN_CHUNK_BYTES = 4096           # each on its own mbarrier, of >= 4 KB
+STILE_WARPS = 4                  # stile: the k's (warps) of a block
 
 
 def _device_of(name, t):
@@ -77,15 +81,30 @@ def row_copy_plain(src, rows, slots, *, W: int, NB: int,
             buf if keep_buf else None)
 
 
+def row_copy_plan(W: int, S: int, elt: int):
+    """(dynamic shared bytes of a block, chunks, chunk bytes) of row_copy's
+    kernel for a stage of W rows of S elements of elt bytes (W*S*elt a
+    multiple of 16): 256 bytes of barriers and sums, then the stage,
+    copied in up to COPY_CHUNKS pieces of at least MIN_CHUNK_BYTES, each a
+    multiple of 16 bytes but the last, which ends the stage."""
+    nbytes = W * S * elt
+    chunks = max(1, min(COPY_CHUNKS, nbytes // MIN_CHUNK_BYTES))
+    size = (-(-nbytes // chunks) + 15) // 16 * 16
+    return 256 + nbytes, -(-nbytes // size), size
+
+
 def row_copy(src, rows, slots, *, W: int, NB: int, sum_stage: bool = False,
              keep_buf: bool = False):
     """K1 (see row_copy_plain for what it returns). CUDA tensors: one block
-    per lane, the copy by cp.async.bulk completing on an mbarrier, the
-    total added up by the last block to finish (one launch, nothing else
-    on the card; launches on one stream at a time); the source rows must
-    be 16-byte multiples (S * itemsize) and the stage and buffer must fit
-    one block's shared memory; the buffer is written back to global
-    memory only with keep_buf. CPU tensors: the plain version."""
+    per lane, the L blocks one thread block cluster (so 1 <= L <= 16), the
+    copy by cp.async.bulk in up to four pieces, each completing on its own
+    mbarrier and summed as it lands, the total added up in block 0 from the
+    others' shared memory (one launch, no state shared between launches,
+    so launches on several streams at once are independent); the source
+    rows must be 16-byte multiples (S * itemsize) and the stage must fit
+    one block's shared memory; the buffer is never built on the card but
+    written to global memory with keep_buf. CPU tensors: the plain
+    version."""
     dev = _device_of("row_copy", src)
     if dev.type == "cpu":
         return row_copy_plain(src, rows, slots, W=W, NB=NB,
@@ -98,13 +117,13 @@ def row_copy(src, rows, slots, *, W: int, NB: int, sum_stage: bool = False,
     if W < 1 or NB < 0:
         raise ValueError(f"row_copy: W={W} must be positive, NB={NB} not "
                          "negative")
+    if not 1 <= L <= MAX_CLUSTER_LANES:
+        raise ValueError(f"row_copy: {L} lanes; one block cluster takes "
+                         f"1-{MAX_CLUSTER_LANES}")
     if (S * elt) % 16 or src.data_ptr() % 16:
         raise ValueError(f"row_copy: a bulk copy needs 16-byte aligned rows "
                          f"(S={S} x {elt} bytes, base {src.data_ptr():#x})")
-    if W * S * elt >= 1 << 20:
-        raise ValueError(f"row_copy: {W * S * elt} bytes exceed one "
-                         "mbarrier's transaction count")
-    shm = 128 + (W + NB) * S * elt
+    shm, chunks, chunk = row_copy_plan(W, S, elt)
     if shm > MAX_SHARED_BYTES - 1024:
         raise ValueError(f"row_copy: {shm} bytes of shared memory per block")
     buf = (torch.empty((L, NB, S), dtype=src.dtype, device=dev)
@@ -114,7 +133,8 @@ def row_copy(src, rows, slots, *, W: int, NB: int, sum_stage: bool = False,
     _launch(dev, "pomfret_probe_row_copy_launch", elt, src.data_ptr(),
             rows.data_ptr(), slots.data_ptr(),
             None if buf is None else buf.data_ptr(), lane_sum.data_ptr(),
-            total.data_ptr(), L, R, S, W, NB, int(bool(sum_stage)))
+            total.data_ptr(), L, R, S, W, NB, int(bool(sum_stage)), chunks,
+            chunk)
     row_copy.launches += 1
     return lane_sum, total, buf
 
@@ -263,9 +283,31 @@ def stile_plain(cnt, cids, ranges, *, tiled: bool, n_iter: int = 1):
     return acc
 
 
+def stile_plan(NC: int, S: int, D: int):
+    """(k's of a block, dynamic shared bytes of a block) of stile's kernel:
+    one warp per (b, k), up to STILE_WARPS k's of one b a block; a block
+    stages the D even count planes, a plane of zeros and its id rows over
+    S sites (rounded up to a multiple of 4) after a 128-byte barrier,
+    whatever the ranges."""
+    kpb = max(1, min(STILE_WARPS, NC))
+    return kpb, 128 + (D + 1 + kpb) * (-(-S // 4) * 4) * 4
+
+
 def stile(cnt, cids, ranges, *, tiled: bool, n_iter: int = 1):
-    """K4: one block per (b, k); the tile bounds are computed in the kernel
-    from the ranges. CUDA: the kernel; CPU: the plain version."""
+    """K4: one warp per (b, k), the inputs staged in shared memory once per
+    block, the tile bounds computed in the kernel from the ranges, the
+    quotients by reciprocal and FMA. CUDA: the kernel (D + 5 rows of S
+    sites must fit one block's shared memory); CPU: the plain version."""
+    return stile_divided(cnt, cids, ranges, tiled=tiled, n_iter=n_iter,
+                         rcp=True)
+
+
+def stile_divided(cnt, cids, ranges, *, tiled: bool, n_iter: int = 1,
+                  rcp: bool):
+    """stile, with its quotients by the reciprocal of each iteration's
+    divisor and an FMA correction (rcp) or by __fdiv_rn: the same bits
+    either way, so that the two divisions can be timed against each
+    other."""
     dev = _device_of("stile", cnt)
     if dev.type == "cpu":
         return stile_plain(cnt, cids, ranges, tiled=tiled, n_iter=n_iter)
@@ -274,15 +316,49 @@ def stile(cnt, cids, ranges, *, tiled: bool, n_iter: int = 1):
     _check("cnt", cnt, (torch.float32,), (B, D2, S), dev)
     _check("cids", cids, (torch.int32,), (B, NC, S), dev)
     _check("ranges", ranges, (torch.int32,), (B, 2), dev)
+    kpb, shm = stile_plan(NC, S, D2 // 2)
+    if shm > MAX_SHARED_BYTES - 1024:
+        raise ValueError(f"stile: {D2 // 2} count planes and {kpb} id rows "
+                         f"of {S} sites need {shm} bytes of shared memory")
     out = torch.empty((B, NC), dtype=torch.float32, device=dev)
     _launch(dev, "pomfret_probe_stile_launch", cnt.data_ptr(),
             cids.data_ptr(), ranges.data_ptr(), out.data_ptr(), B, NC, S,
-            D2 // 2, int(bool(tiled)), n_iter)
+            D2 // 2, int(bool(tiled)), n_iter, kpb, int(bool(rcp)))
     stile.launches += 1
     return out
 
 
 stile.launches = 0
+
+
+def stile_ratios_plain(c0, n_iter: int):
+    """(n_iter, n) f32: each f32 c0 (n,) divided by each iteration's
+    divisor 7 + f32(i) 1e-6, as stile_plain divides."""
+    f32 = torch.float32
+    i = torch.arange(n_iter, device=c0.device).to(f32)
+    div = torch.tensor(7.0, dtype=f32, device=c0.device) + i * torch.tensor(
+        1e-6, dtype=f32, device=c0.device)
+    return c0[None, :] / div[:, None]
+
+
+def stile_ratios(c0, n_iter: int, *, rcp: bool = True):
+    """stile's quotients alone, for the check of its division: CUDA, the
+    kernel's division (rcp as in stile_divided) in a kernel of its own;
+    CPU, the plain version."""
+    dev = _device_of("stile_ratios", c0)
+    if dev.type == "cpu":
+        return stile_ratios_plain(c0, n_iter)
+    _check("c0", c0, (torch.float32,), c0.shape, dev)
+    if c0.dim() != 1:
+        raise ValueError("stile_ratios: c0 must be one-dimensional")
+    out = torch.empty((n_iter, c0.numel()), dtype=torch.float32, device=dev)
+    _launch(dev, "pomfret_probe_stile_ratio_launch", c0.data_ptr(),
+            out.data_ptr(), c0.numel(), n_iter, int(bool(rcp)))
+    stile_ratios.launches += 1
+    return out
+
+
+stile_ratios.launches = 0
 
 # the probe kernels' wrappers by kernel name; each counts its launches
 PROBE_KERNELS = {"probe_row_copy": row_copy, "probe_lane_vec": lane_vec,

@@ -906,6 +906,74 @@ def args_batch(args, D: int, nc_cap: int):
     return batch, int(max_iters[0])
 
 
+# Inputs of the probe kernels' edge cases (kernels/probes.py): the ratio
+# sum's ranges by batch row b (an rng draws the rest) at probe_stile's
+# width S=1536, and two row copies in flight at once on two streams.
+STILE_S = 1536
+STILE_EDGE_RANGES = {
+    "lo_below_zero": lambda b, r: (-int(r.integers(1, 400)),
+                                   int(r.integers(0, 700))),
+    "hi_past_s": lambda b, r: (int(r.integers(0, 1400)),
+                               STILE_S + int(r.integers(1, 300))),
+    "empty_lo_ge_hi": lambda b, r: ((int(r.integers(300, 900)),) * 2
+                                    if b % 2 else
+                                    (700, int(r.integers(0, 700)))),
+    "tiles_differ_by_row": lambda b, r: (
+        256 * (b % 6) + int(r.integers(0, 40)),
+        256 * (b % 6) + int(r.integers(41, 300))),
+    "whole_batch_empty": lambda b, r: (900, 100),
+    "all_sites": lambda b, r: (-5, STILE_S + 5),
+}
+
+
+def stile_edge_inputs(case: str, seed: int, B: int = 32, NC: int = 16,
+                      D: int = 4, S: int = STILE_S):
+    """numpy inputs of the ratio sum (cnt, cids, ranges) with the ranges of
+    STILE_EDGE_RANGES[case] and ids from -2 to D + 1 (outside [0, D) too)."""
+    r = np.random.default_rng(seed)
+    return dict(
+        cnt=r.integers(0, 5, size=(B, 2 * D, S)).astype(np.float32),
+        cids=r.integers(-2, D + 2, size=(B, NC, S)).astype(np.int32),
+        ranges=np.array([STILE_EDGE_RANGES[case](b, r) for b in range(B)],
+                        np.int32))
+
+
+def row_copy_two_streams(device, trials: int, spin_cycles: int = 200_000):
+    """Two row_copy launches in flight at once, on two streams, each queued
+    behind a spin kernel of its own so that both start together; returns
+    the trials whose lane sums or totals differ from the plain version's
+    (an empty list when each launch kept its own total)."""
+    import torch
+    from .kernels import probes as kp
+    W, NB = 8, 8
+    src = [torch.from_numpy((np.arange(8 * 64 * 256, dtype=np.int64)
+                             .reshape(8, 64, 256) % (7 + k) - k)
+                            .astype(np.int32)) for k in (1, 2)]
+    rows = [torch.tensor(v, dtype=torch.int32)
+            for v in ([0, 5, 9, 13, 17, 21, 25, 56], [56, -1, 3, 7, 11, 40,
+                                                      44, 48])]
+    slots = torch.tensor([0, 1, -1, 0, 0, 0, 0, 0], dtype=torch.int32)
+    want = [kp.row_copy_plain(s, r, slots, W=W, NB=NB)[:2]
+            for s, r in zip(src, rows)]
+    dev = [(s.to(device), r.to(device), slots.to(device))
+           for s, r in zip(src, rows)]
+    streams = [torch.cuda.Stream(device) for _ in dev]
+    for st in streams:
+        st.wait_stream(torch.cuda.current_stream(device))
+    bad = []
+    for trial in range(trials):
+        got = []
+        for st, (s, r, sl) in zip(streams, dev):
+            with torch.cuda.stream(st):
+                torch.cuda._sleep(spin_cycles)
+                got.append(kp.row_copy(s, r, sl, W=W, NB=NB))
+        torch.cuda.synchronize(device)
+        for (lane, total, _), (wl, wt) in zip(got, want):
+            if not (torch.equal(lane.cpu(), wl) and torch.equal(total.cpu(), wt)):
+                bad.append(trial)
+    return bad
+
+
 # The body of each process of run_processes: the CLI, then one line with
 # what the process did.
 _PROC_MAIN = r"""

@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+from pomfret_tpu_torch import testing
 from pomfret_tpu_torch.kernels import engine_fused as tf
 from pomfret_tpu_torch.kernels import engine_fused3 as tf3
 from pomfret_tpu_torch.kernels import probes as kp
@@ -304,7 +305,7 @@ def test_probe_row_copy_edges(cuda, dtype):
     """Rows outside [0, R) copy nothing, slots outside [0, NB) place
     nothing, on the card as in the plain version; without keep_buf the
     buffer is not written back; the total of a launch does not carry over
-    into the next (the kernel's block counter resets itself)."""
+    into the next (nothing outlives a launch)."""
     src = (torch.arange(4 * 6 * 64) % 7 - 1).to(dtype).view(4, 6, 64)
     rows = torch.tensor([0, 5, -1, 3], dtype=torch.int32)
     slots = torch.tensor([1, 0, 0, 3], dtype=torch.int32)
@@ -329,6 +330,144 @@ def test_probe_kernels_refuse_what_they_cannot_take(cuda):
     idx = torch.zeros(2, dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError, match="16-byte"):
         kp.row_copy(src, idx, idx, W=1, NB=1)
+    for L in (0, kp.MAX_CLUSTER_LANES + 1):      # one cluster of 1-16 blocks
+        src = torch.zeros(L, 4, 16, dtype=torch.int8, device=cuda)
+        idx = torch.zeros(L, dtype=torch.int32, device=cuda)
+        with pytest.raises(ValueError, match="cluster"):
+            kp.row_copy(src, idx, idx, W=1, NB=1)
+    cnt = torch.zeros(1, 2 * 64, 1536, device=cuda)  # 64 planes: 417 KB
+    cids = torch.zeros(1, 1, 1536, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="shared memory"):
+        kp.stile(cnt, cids, idx[:2].view(1, 2), tiled=False)
     with pytest.raises(ValueError, match="multiple of 4"):
         kp.lane_vec(torch.zeros(6, 8, dtype=torch.int32, device=cuda),
                     "smem_dma")
+
+
+# ---------------------------------------------------------------------------
+# The redesigned stile and row_copy kernels on their edge cases, bit for bit
+# against the plain versions (on the CPU, from the same inputs)
+# ---------------------------------------------------------------------------
+
+def _stile_check(inp, cuda, n_iters, rcp):
+    t = tpr.tensors(inp, "cpu")
+    c = tpr.tensors(inp, cuda)
+    for n_iter in n_iters:
+        want = kp.stile_plain(t["cnt"], t["cids"], t["ranges"], tiled=False,
+                              n_iter=n_iter)
+        for tiled in (False, True):
+            got = kp.stile_divided(c["cnt"], c["cids"], c["ranges"],
+                                   tiled=tiled, n_iter=n_iter, rcp=rcp)
+            assert torch.equal(got.cpu(), want), (n_iter, tiled)
+
+
+@pytest.mark.parametrize("rcp", [True, False])
+def test_probe_stile_iterations(cuda, rcp):
+    """probe_stile's inputs at 1, 3 and 400 iterations, and with a range
+    of its own per row."""
+    inp = tpr.stile_make()
+    _stile_check(inp, cuda, (1, 3, 400), rcp)
+    lo = np.random.default_rng(7).integers(0, 900, size=len(inp["ranges"]))
+    inp["ranges"] = np.stack([lo, lo + 300], 1).astype(np.int32)
+    _stile_check(inp, cuda, (3,), rcp)
+
+
+@pytest.mark.parametrize("rcp", [True, False])
+@pytest.mark.parametrize("case", sorted(testing.STILE_EDGE_RANGES))
+def test_probe_stile_edge_ranges(cuda, case, rcp):
+    """lo < 0, hi > S, lo >= hi, tiles that differ by row, ids outside
+    [0, D); at (B, NC) = (32, 16), (1, 16), (32, 1), (1, 1), and at 400
+    iterations for the full batch."""
+    for seed, (B, NC) in enumerate(((32, 16), (1, 16), (32, 1), (1, 1))):
+        inp = testing.stile_edge_inputs(case, seed, B, NC)
+        _stile_check(inp, cuda, (1, 3, 400) if seed == 0 else (3,), rcp)
+
+
+@pytest.mark.parametrize("S,D,NC", [(99, 4, 6), (1537, 2, 5), (64, 8, 4)])
+def test_probe_stile_other_shapes(cuda, S, D, NC):
+    """Rows that are not 16-byte multiples (staged by loads, not bulk
+    copies), eight count planes, NC not a multiple of the warps a block."""
+    inp = testing.stile_edge_inputs("tiles_differ_by_row", S, 5, NC, D, S)
+    _stile_check(inp, cuda, (1, 7), True)
+
+
+@pytest.mark.parametrize("scale", [2.0 ** 110, 2.0 ** -110])
+def test_probe_stile_counts_outside_the_reciprocal_range(cuda, scale):
+    """Counts outside [2^-100, 2^100], where the reciprocal's quotient need
+    not be the IEEE one, send their block to __fdiv_rn: equal bit for bit
+    still (small integers times one power of two keep the f64 sums
+    exact)."""
+    inp = tpr.stile_make()
+    inp["cnt"] = (inp["cnt"] * np.float32(scale)).astype(np.float32)
+    _stile_check(inp, cuda, (1, 3), True)
+
+
+@pytest.mark.parametrize("rcp", [True, False])
+def test_probe_stile_division_is_ieee(cuda, rcp):
+    """stile_kernel's quotient equals the IEEE quotient (the plain version's
+    on the CPU) for every integer c0 in [1, 2^16] against all 400 divisors
+    of probe_stile2, for random normal c0 and for zeros, subnormals,
+    infinities and huge values."""
+    ints = np.arange(1, 2 ** 16 + 1, dtype=np.float32)
+    rand = np.exp2(np.random.default_rng(5).uniform(-126, 127, 1 << 16))
+    special = np.array([0.0, -0.0, 2.0 ** -149, 2.0 ** -130, 2.0 ** -101,
+                        2.0 ** 101, 3.0e38, np.inf, -np.inf, -1.0, -7.0],
+                       np.float32)
+    c0 = torch.from_numpy(np.concatenate([ints, rand.astype(np.float32),
+                                          special]))
+    n0 = kp.stile_ratios.launches
+    got = kp.stile_ratios(c0.to(cuda), 400, rcp=rcp).cpu()
+    assert kp.stile_ratios.launches == n0 + 1
+    want = kp.stile_ratios_plain(c0, 400)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+def _row_copy_check(src, rows, slots, W, cuda):
+    R = src.shape[1]
+    for NB in (0, W, W + 3):
+        for sum_stage in (False, True):
+            for keep_buf in (False, True):
+                want = kp.row_copy_plain(src, rows, slots, W=W, NB=NB,
+                                         sum_stage=sum_stage,
+                                         keep_buf=keep_buf)
+                got = kp.row_copy(src.to(cuda), rows.to(cuda),
+                                  slots.to(cuda), W=W, NB=NB,
+                                  sum_stage=sum_stage, keep_buf=keep_buf)
+                assert torch.equal(got[0].cpu(), want[0]), (R, W, NB)
+                assert torch.equal(got[1].cpu(), want[1])
+                assert (got[2] is None) == (not keep_buf)
+                if keep_buf:
+                    assert torch.equal(got[2].cpu(), want[2])
+
+
+@pytest.mark.parametrize("dtype", [torch.int8, torch.int32])
+@pytest.mark.parametrize("W", [1, 17, 64])
+def test_probe_row_copy_rows_slots(cuda, dtype, W):
+    """W = 1, 17 and R (one chunk to four), rows -1, R-W and R-W+1, slots
+    in and out of range, NB = 0, W and W+3, with and without keep_buf, at
+    the most lanes one cluster takes."""
+    R, S, L = 64, 256, kp.MAX_CLUSTER_LANES
+    r = np.random.default_rng(W)
+    src = torch.from_numpy(r.integers(-128, 128, size=(L, R, S))).to(dtype)
+    rows = torch.tensor(([-1, R - W, R - W + 1, 0] * 4)[:L], dtype=torch.int32)
+    slots = torch.tensor(([0, 3, -1, 1, 2, 0, 5, 0] * 2)[:L],
+                         dtype=torch.int32)
+    _row_copy_check(src, rows, slots, W, cuda)
+
+
+@pytest.mark.parametrize("L", range(1, kp.MAX_CLUSTER_LANES + 1))
+def test_probe_row_copy_lanes(cuda, L):
+    """Every cluster size from 1 to 16 lanes (above 8 non-portable)."""
+    r = np.random.default_rng(L)
+    src = torch.from_numpy(r.integers(-5, 100, size=(L, 32, 64))).to(
+        torch.int32)
+    rows = torch.from_numpy(r.integers(-2, 32, size=L)).to(torch.int32)
+    slots = torch.from_numpy(r.integers(-1, 6, size=L)).to(torch.int32)
+    _row_copy_check(src, rows, slots, 4, cuda)
+
+
+def test_probe_row_copy_two_streams(cuda):
+    """Two launches in flight at once on two streams: each keeps its own
+    lane sums and total (no counter or other state shared between
+    launches)."""
+    assert testing.row_copy_two_streams(cuda, trials=20) == []

@@ -21,6 +21,7 @@ import contextlib
 import importlib.util
 import io
 import os
+from fractions import Fraction
 
 import jax
 import numpy as np
@@ -28,6 +29,7 @@ import pytest
 import torch
 from jax.experimental import pallas as pl
 
+from pomfret_tpu_torch import testing
 from pomfret_tpu_torch.kernels import probes as kp
 from pomfret_tpu_torch.tools import probes as tp
 
@@ -178,3 +180,151 @@ def test_entry_point_fails_on_a_wrong_result(monkeypatch, capsys):
     assert tp.main(["tools/probe_v3_parts.py", "whileloop", "--device",
                     "cpu"]) == 1
     assert "whileloop: FAIL out" in capsys.readouterr().out
+
+
+# ---------------------------------------------------------------------------
+# The identities the card kernels rely on, held on the plain versions
+# ---------------------------------------------------------------------------
+
+S_STILE = testing.STILE_S
+
+
+@pytest.mark.parametrize("case", sorted(testing.STILE_EDGE_RANGES))
+def test_stile_plain_full_equals_tiled_edge_ranges(case):
+    """Full-S == tiled-S == the numpy oracle bit for bit on ranges with lo
+    < 0, hi > S, lo >= hi, a tile of their own per row, ids outside [0, D);
+    also at B = 1 and NC = 1."""
+    for seed, (B, NC) in enumerate(((32, 16), (1, 16), (32, 1), (1, 1))):
+        inp = testing.stile_edge_inputs(case, seed, B, NC)
+        t = tp.tensors(inp, "cpu")
+        full, tiled = (kp.stile_plain(t["cnt"], t["cids"], t["ranges"],
+                                      tiled=tl, n_iter=3)
+                       for tl in (False, True))
+        assert torch.equal(full, tiled), (case, B, NC)
+        assert np.array_equal(full.numpy(), tp.stile_expect(inp, 3))
+
+
+@pytest.mark.parametrize("tiled", [False, True])
+def test_stile_plain_same_bits_when_sites_permuted(tiled):
+    """The f64 sum of the ratios is exact, so any order of the sites gives
+    the same bits: the kernel's warps sum in their own order. Permuting
+    every site under a range that keeps them all, and the sites inside a
+    shared range among themselves, leaves the result unchanged."""
+    inp = tp.stile_make()
+    t = tp.tensors(inp, "cpu")
+    lo, hi = tp.STILE_RANGE
+    r = np.random.default_rng(11)
+    for perm, ranges in (
+            (r.permutation(S_STILE), torch.tensor([[0, S_STILE]] * 32,
+                                                  dtype=torch.int32)),
+            (np.r_[np.arange(lo), lo + r.permutation(hi - lo),
+                   np.arange(hi, S_STILE)], t["ranges"])):
+        perm = torch.from_numpy(perm)
+        want = kp.stile_plain(t["cnt"], t["cids"], ranges, tiled=tiled,
+                              n_iter=4)
+        got = kp.stile_plain(t["cnt"][:, :, perm], t["cids"][:, :, perm],
+                             ranges, tiled=tiled, n_iter=4)
+        assert torch.equal(got, want)
+
+
+def _rn32_sum(q, t):
+    """RN to f32 of q + t, exactly: q f32, t f64. The f64 sum rounds, but
+    monotonically, so its f32 rounding is right unless it lands on an f32
+    midpoint that the exact sum is not on; those are redone in
+    fractions."""
+    q64 = q.astype(np.float64)
+    s = q64 + t
+    f = s.astype(np.float32)
+    other = np.nextafter(f, np.where(s > f.astype(np.float64),
+                                     np.float32(np.inf), np.float32(-np.inf)))
+    mid = (f.astype(np.float64) + other.astype(np.float64)) / 2
+    for i in np.flatnonzero((mid == s) & (other != f)):
+        exact = Fraction(float(q64[i])) + Fraction(float(t[i]))
+        if exact != Fraction(float(mid[i])):
+            f[i] = max(f[i], other[i]) if exact > mid[i] else min(f[i], other[i])
+    return f
+
+
+def _rcp_fma_quotients(c0, div):
+    """stile_kernel's reciprocal-and-FMA quotient, emulated exactly: r =
+    RN(1/div), q = RN(c0 r), e = RN(c0 - q div) (c0 - q div is exact in
+    f64 by Sterbenz's lemma), result RN(q + e r) (e r is exact in f64)."""
+    r = np.float32(1) / div
+    q = c0 * r
+    e = (c0.astype(np.float64) - q.astype(np.float64) * np.float64(div))
+    e = e.astype(np.float32).astype(np.float64)
+    return _rn32_sum(q, e * np.float64(r))
+
+
+def test_stile_rcp_fma_division_is_ieee():
+    """The quotient the kernel takes by default (a reciprocal per
+    iteration and an FMA correction) equals the IEEE quotient for every
+    integer c0 in [1, 2^16] and each of probe_stile2's 400 divisors, and
+    for random normal c0; emulated exactly here, run on the card by
+    tests/test_torch_kernel.py."""
+    ints = np.arange(1, 2 ** 16 + 1, dtype=np.float32)
+    rand = np.random.default_rng(5).uniform(-90, 90, 1 << 15)
+    rand = np.exp2(rand).astype(np.float32)
+    c0 = np.concatenate([ints, rand])
+    want = kp.stile_ratios_plain(torch.from_numpy(c0), 400).numpy()
+    divs = np.float32(7) + np.arange(400, dtype=np.float32) * np.float32(1e-6)
+    for i, div in enumerate(divs):
+        got = _rcp_fma_quotients(c0, div)
+        assert np.array_equal(got, c0 / div), i
+        assert np.array_equal(got, want[i]), i
+    # the emulation sees an uncorrected quotient's errors
+    assert not np.array_equal(c0 * (np.float32(1) / divs[8]), c0 / divs[8])
+    assert torch.equal(kp.stile_ratios(torch.from_numpy(ints[:10]), 3),
+                       kp.stile_ratios_plain(torch.from_numpy(ints[:10]), 3))
+
+
+@pytest.mark.parametrize("NC,S,D", [(16, 1536, 4), (1, 1536, 4), (3, 100, 8),
+                                    (64, 7, 1)])
+def test_stile_plan(NC, S, D):
+    kpb, shm = kp.stile_plan(NC, S, D)
+    assert kpb == min(kp.STILE_WARPS, NC)
+    row = -(-S // 4) * 4
+    assert row % 4 == 0 and S <= row < S + 4
+    assert shm == 128 + (D + 1 + kpb) * row * 4
+    assert kp.stile_plan(16, 1536, 4) == (4, 128 + 9 * 1536 * 4)
+
+
+@pytest.mark.parametrize("W,S,elt", [(1, 256, 1), (1, 256, 4), (17, 256, 1),
+                                     (16, 256, 1), (64, 256, 4), (64, 256, 1),
+                                     (3, 48, 4), (63, 16, 1)])
+def test_row_copy_plan(W, S, elt):
+    """The chunks cover the stage once, in 1-4 pieces of 16-byte multiples,
+    each of at least MIN_CHUNK_BYTES but where one piece takes it all."""
+    shm, chunks, size = kp.row_copy_plan(W, S, elt)
+    nbytes = W * S * elt
+    assert shm == 256 + nbytes
+    assert 1 <= chunks <= kp.COPY_CHUNKS and size % 16 == 0
+    assert (chunks - 1) * size < nbytes <= chunks * size
+    assert chunks == 1 or size >= kp.MIN_CHUNK_BYTES
+    if nbytes >= kp.COPY_CHUNKS * kp.MIN_CHUNK_BYTES:
+        assert chunks == kp.COPY_CHUNKS
+
+
+@pytest.mark.parametrize("dtype", [torch.int8, torch.int32])
+def test_row_copy_plain_buffer_sum_is_stage_sum_where_placed(dtype):
+    """sum(buffer) == sum(stage) for a lane whose stage is placed, 0 for
+    one whose is not: the kernel sums the stage and never builds the
+    buffer."""
+    r = np.random.default_rng(3)
+    L, R, S, W, NB = 8, 12, 32, 3, 5
+    src = torch.from_numpy(r.integers(-100, 100, size=(L, R, S))).to(dtype)
+    rows = torch.tensor([-1, 0, R - W, R - W + 1, 4, 2, 9, 5],
+                        dtype=torch.int32)
+    slots = torch.tensor([0, 2, -1, 1, NB - W, NB - W + 1, 0, 7],
+                         dtype=torch.int32)
+    staged, st_total, _ = kp.row_copy_plain(src, rows, slots, W=W, NB=NB,
+                                            sum_stage=True)
+    lane, total, buf = kp.row_copy_plain(src, rows, slots, W=W, NB=NB,
+                                         keep_buf=True)
+    placed = (slots >= 0) & (slots <= NB - W)
+    assert torch.equal(lane, torch.where(placed, staged, 0))
+    assert torch.equal(lane, buf.to(torch.int32).sum(dim=(1, 2),
+                                                     dtype=torch.int32))
+    assert int(total) == int(lane.sum()) and int(st_total) == int(staged.sum())
+    copied = (rows >= 0) & (rows <= R - W)
+    assert torch.equal(staged != 0, copied & (staged != 0))
