@@ -48,9 +48,15 @@ Phases, each printing one line:
     and queued behind a spin kernel for the device time alone), and the
     stile ratio sum's full-S and tiled-S times at (32,16,1536), range
     [128,640), with the wrapper's quotient and with __fdiv_rn (equal),
-    and its device time per iteration at S = 128-2048; then two row_copy
-    launches in flight on two streams at once, 20 times, each equal to
-    its plain version;
+    and its device time per iteration at S = 128-2048; each entry's
+    launch floor (floor_ms: the empty kernel at its grid, block and
+    cluster shape, as often as the entry launches; touch_floor_ms: the
+    same with one dependent global read and write); then two row_copy and
+    two v3_loop launches in flight on two streams at once, 20 times, each
+    equal to its plain version; lane_vec's smem_dma by its on-chip bulk
+    copy and by a round trip through global memory; and the v3 loop's
+    device time per iteration (100 -> 400 iterations at L=8, R=1024,
+    NC=4, S = 256 and 1536) by bulk copy and by the warp's loads;
  4a. warmup: `pomfret-tpu-torch warmup --engine cuda` on the 200-gap scale
     dataset of bench.py (generated once into .bench_data/ by the port's
     testing.py): one loop-kernel launch at max_iters=0 per packed shape;
@@ -471,7 +477,8 @@ def probe_times(pb, name):
     """ms, plain_ms, bound_ms and bound_by of one launch of a probe kernel
     at its PROBE_AT entry (probe_stile: the full-S launch)."""
     e = pb["entries"][" ".join(PROBE_AT[name])]
-    out = {k: e[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")}
+    out = {k: e[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                             "floor_ms")}
     if name == "probe_stile":
         st = pb["stile"][f"{PROBE_AT[name][0]} full"]
         out.update(ms=st["us_per_call"] / 1e3,
@@ -485,12 +492,14 @@ def phase_probes(dev):
     against the probe's oracle, then each kernel's raw outputs against its
     plain version on the same inputs (exact; bit for bit for the ratio
     sums; K1's staged buffer too), the times of every entry as the entry
-    point calls it, the stile full-S/tiled-S times by either quotient, and
-    K1 on two streams at once."""
+    point calls it beside its launch floor, the stile full-S/tiled-S times
+    by either quotient, K1 and K3 on two streams at once, K2's smem_dma by
+    either route and K3's time per iteration by either row copy."""
     import numpy as np
     import torch
     from pomfret_tpu_torch.kernels import probes as kp
-    from pomfret_tpu_torch.testing import row_copy_two_streams
+    from pomfret_tpu_torch.testing import (row_copy_two_streams, v3_inputs,
+                                           v3_loop_two_streams)
     from pomfret_tpu_torch.tools import probes as tp
 
     for fn in kp.PROBE_KERNELS.values():
@@ -519,10 +528,27 @@ def phase_probes(dev):
                 max_err[p.kernel] = max(max_err[p.kernel], err)
         heavy = p.kernel == "probe_stile"
         fn, plain_fn = kp.PROBE_KERNELS[p.kernel], kp.PROBE_PLAIN[p.kernel]
+        # the floor: the empty kernel at the entry's launch shape, as many
+        # times as one call launches the kernel (stile's entries: twice)
+        shape = tp.launch_shape(p, inputs)
+        n0 = fn.launches
+        p.call(fn, t)
+        n_launch = fn.launches - n0
+
+        touch = torch.zeros(2 * shape[0][0] * shape[0][1],
+                            dtype=torch.int32, device=dev)
+
+        def floor(touch=None):
+            for _ in range(n_launch):
+                kp.launch_floor(dev, *shape, touch=touch)
         entries[f"{p.stem} {p.variant}"] = dict(
             kernel=p.kernel,
             ms=cuda_ms(lambda: p.call(fn, t), 5 if heavy else 50),
             device_ms=queued_ms(lambda: p.call(fn, t), 5 if heavy else 50),
+            floor_ms=queued_ms(floor, 50),
+            touch_floor_ms=queued_ms(lambda: floor(touch), 50),
+            launch_shape=shape,
+            launches_per_call=n_launch,
             plain_ms=cuda_ms(lambda: p.call(plain_fn, t), 2 if heavy else 10),
             **probe_bound(p, inputs))
 
@@ -571,8 +597,42 @@ def phase_probes(dev):
     bad = row_copy_two_streams(dev, trials=20)
     check(not bad, f"row_copy on two streams at once: trials {bad} differ "
           "from the plain version")
+    bad = v3_loop_two_streams(dev, trials=20)
+    check(not bad, f"v3_loop on two streams at once: trials {bad} differ "
+          "from the plain version")
+
+    # lane_vec's smem_dma by either route, at the registry's shape: the
+    # on-chip bulk copy in a one-block cluster (the wrapper's) and the
+    # round trip through global memory (the same bits), timed in turns
+    hp = tp.tensors(tp.PROBES[("probe_v3_parts", "smem_dma")].make(),
+                    dev)["hp"]
+    want = kp.lane_vec_plain(hp, "smem_dma")
+    dma = {"cluster": 0.0, "global": 0.0}
+    for route in ("cluster", "global", "global", "cluster"):  # in turns
+        cluster = route == "cluster"
+        check(torch.equal(kp.lane_vec_dma(hp, cluster=cluster), want),
+              f"lane_vec smem_dma by the {route} route != its plain version")
+        dma[route] += queued_ms(lambda: kp.lane_vec_dma(hp, cluster=cluster),
+                                50) * 1e3 / 2
+
+    # the v3 loop's time per iteration, the slope between 100 and 400
+    # iterations at (L=8, R=1024, NC=4), S = 256 and 1536, by bulk copy
+    # (the wrapper's) and by the warp's loads: the latency of the chain of
+    # pick, row copy, wait and sum; each equal to the plain version
+    slope = {}
+    for S in (256, 1536):
+        c = tp.tensors(v3_inputs(8, 1024, S, S), dev)
+        for route, fn in (("bulk", kp.v3_loop), ("loads", kp.v3_loop_loaded)):
+            check(torch.equal(fn(c["ids"], c["hp"], NC=4, n_iter=400),
+                              kp.v3_loop_plain(c["ids"], c["hp"], NC=4,
+                                               n_iter=400)),
+                  f"v3_loop by {route} at S={S} != its plain version")
+            us = [queued_ms(lambda: fn(c["ids"], c["hp"], NC=4, n_iter=n),
+                            10) * 1e3 for n in (100, 400)]
+            slope[f"S={S} {route}"] = (us[1] - us[0]) / 300
     return dict(launches=launches, max_abs_err=max_err, entries=entries,
                 stile=stile, stile_us_per_iter_by_S=sweep,
+                smem_dma_device_us=dma, v3_loop_us_per_iter=slope,
                 two_stream_trials=20)
 
 
@@ -988,12 +1048,30 @@ def say_probes(pb, seconds, card):
         + f"; {card}")
     k1 = {k: e["device_ms"] * 1e3 for k, e in pb["entries"].items()
           if e["kernel"] == "probe_row_copy"}
+    say("probes", "device us a launch / its launch floor (the empty "
+        "kernel at the entry's grid, block and cluster shape) / the floor "
+        "with one dependent global read and write, by kernel: "
+        + "; ".join(
+            f"{name[6:]} " + ", ".join(
+                f"{k.split(' ', 1)[1]} {e['device_ms'] * 1e3:.2f}/"
+                f"{e['floor_ms'] * 1e3:.2f}/{e['touch_floor_ms'] * 1e3:.2f}"
+                for k, e in pb["entries"].items() if e["kernel"] == name)
+            for name in PROBE_SITES) + f"; {card}")
     say("probes", f"row_copy: {len(k1)} entries, device "
         f"{min(k1.values()):.2f}-{max(k1.values()):.2f} us a launch "
         f"({PROBE_AT['probe_row_copy'][1]} "
         f"{k1[' '.join(PROBE_AT['probe_row_copy'])]:.2f}); two launches in "
         f"flight on two streams, {pb['two_stream_trials']} times: each "
         f"kept its own lane sums and total; {card}")
+    say("probes", "lane_vec smem_dma device us a launch: on-chip bulk copy "
+        f"(one-block cluster) {pb['smem_dma_device_us']['cluster']:.2f}, "
+        "round trip through global memory "
+        f"{pb['smem_dma_device_us']['global']:.2f}; v3_loop device us per "
+        "iteration (slope 100 -> 400 iterations, L=8, R=1024, NC=4): "
+        + ", ".join(f"{k} {v:.4f}"
+                    for k, v in pb["v3_loop_us_per_iter"].items())
+        + "; two v3_loop launches on two streams, "
+        f"{pb['two_stream_trials']} times, each kept its own sums; {card}")
 
 
 # One turn of `--turns`, run by a fresh process from the root of a tree
@@ -1019,6 +1097,9 @@ shutil.rmtree(work)
 print("TURN " + json.dumps({
     "probe_s": probe_s, "walls_s": walls,
     "entries": {k: e["device_ms"] * 1e3 for k, e in pb["entries"].items()},
+    "calls": {k: e["ms"] * 1e3 for k, e in pb["entries"].items()},
+    "floors": {k: e["floor_ms"] * 1e3 for k, e in pb["entries"].items()
+               if "floor_ms" in e},
     "stile": {k: v["device_us_per_iter"] for k, v in pb["stile"].items()}}),
     flush=True)
 """
@@ -1052,6 +1133,10 @@ def turns(parent, order="PCCPPCCP", runs=3):
             walls_quartiles=statistics.quantiles(walls, n=4)[::2],
             entries={k: statistics.median(r["entries"][k] for r in runs_)
                      for k in runs_[0]["entries"]},
+            calls={k: statistics.median(r["calls"][k] for r in runs_)
+                   for k in runs_[0]["calls"]},
+            floors={k: statistics.median(r["floors"][k] for r in runs_)
+                    for k in runs_[0].get("floors", {})},
             stile={k: statistics.median(r["stile"][k] for r in runs_)
                    for k in runs_[0]["stile"]})
     write_report(dict(order=order, trees=trees, turns=got, medians=med,
@@ -1070,18 +1155,28 @@ def main(argv=()):
         card = card_line()
         sys.path.insert(0, ROOT)
         from pomfret_tpu_torch.tools.probes import PROBES
-        k1 = {k for k in med["C"]["entries"]
-              if PROBES[tuple(k.split())].kernel == "probe_row_copy"}
+        by_kernel = {}
+        for k in med["C"]["entries"]:
+            by_kernel.setdefault(PROBES[tuple(k.split())].kernel, []).append(k)
         for tag in ("P", "C"):
             m = med[tag]
             say("turns", f"{tag} medians: methphase {m['walls_s']:.3f} s "
                 f"(quartiles {m['walls_quartiles'][0]:.3f}-"
                 f"{m['walls_quartiles'][1]:.3f}); stile device us/iteration "
                 + ", ".join(f"{k} {v:.4f}" for k, v in m["stile"].items())
-                + "; row_copy device us "
-                + ", ".join(f"{k} {v:.2f}" for k, v in m["entries"].items()
-                            if k in k1)
+                + "".join(
+                    f"; {name[6:]} device us " + ", ".join(
+                        f"{k} {m['entries'][k]:.2f}" for k in by_kernel[name])
+                    for name in ("probe_row_copy", "probe_lane_vec",
+                                 "probe_v3_loop"))
                 + f"; {card}")
+        say("turns", "whole calls, medians P / C (us): " + ", ".join(
+            f"{k} {med['P']['calls'][k]:.1f} / {med['C']['calls'][k]:.1f}"
+            for name in ("probe_lane_vec", "probe_v3_loop")
+            for k in by_kernel[name]) + f"; {card}")
+        say("turns", "C launch floors (us): " + ", ".join(
+            f"{k} {v:.2f}" for k, v in med["C"]["floors"].items())
+            + f"; {card}")
         return 0
     os.environ["POMFRET_NO_HOST_FALLBACK"] = "1"
     sys.path.insert(0, ROOT)

@@ -16,11 +16,11 @@
 //    zero (NB, S) buffer, and an int32 sum per lane and over all lanes;
 //  - lane_vec_kernel (probe_v3_parts.py:31/45/66/123): per-lane row minima
 //    kept in shared memory and read back at a static or runtime index, or
-//    moved by bulk copies through global memory into a second shared array
+//    moved by a shared-to-shared bulk copy into a second shared array
 //    first; or a loop with a runtime trip count summing rows;
 //  - v3_loop_kernel (probe_v3_feasibility.py:37): a loop in the kernel that
-//    picks each lane's first eligible read, bulk-copies its row, places it
-//    in slot it % NC and accumulates the candidate buffer's sum;
+//    picks each lane's first eligible read, bulk-copies its row into slot
+//    it % NC and accumulates the candidate buffer's sum;
 //  - stile_kernel (probe_stile.py:27/45, probe_stile2.py:24): the masked
 //    ratio sum sum_s [c0 > 0, lo <= s < hi] c0 / (7 + i 1e-6) over all S
 //    sites or only the 256-site tiles between the batch's range bounds,
@@ -39,12 +39,14 @@
 // op), and the instructions per visited site (~18: two shared loads, the
 // quotient, the tests, the f64 add), issued by one warp per sub-partition.
 //
-// row_copy_kernel and stile_kernel are the second designs (the first ones:
-// one block per lane or per (b, k), zero-filled scratch, block-wide
-// reductions). The other two are the first designs, nothing tuned.
+// All four are second designs (the first ones: one block per lane or per
+// (b, k), zero-filled scratch, block-wide reductions and barriers). Every
+// launch costs the launch floor first: the empty kernel below, at the same
+// grid, block and cluster shape, ~1.7 us queued on an H100.
 //
-// Numerics: the integer sums are exact (int32, wrapping as the plain
-// versions' do). The ratios are f32 IEEE quotients (-prec-div=true, no
+// Numerics: the integer sums are exact (wrapping as the plain versions'
+// int32 sums do; lane_vec and v3_loop add in uint32, where wrapping is
+// defined). The ratios are f32 IEEE quotients (-prec-div=true, no
 // fast math, no FMA contraction), summed in f64 and rounded once to f32:
 // every ratio c0 / (7 + i 1e-6) with small integer c0 is an f32 with the
 // same few exponents, so the f64 sum is exact and the full-S and tiled-S
@@ -74,19 +76,6 @@ __device__ __forceinline__ void bulk_store_s2g(void* dst, const void* src,
                : "memory");
   asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
   asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
-}
-
-// Block-wide sum of 256-thread blocks, returned to every thread (the
-// leading barrier keeps a previous call's readers of `red` ahead of this
-// call's writers).
-__device__ __forceinline__ int block_sum(int v, int* red) {
-  v = warp_sum(v);
-  __syncthreads();
-  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
-  __syncthreads();
-  int r = 0;
-  for (int w = 0; w < kWarps; ++w) r += red[w];
-  return r;
 }
 
 __device__ __forceinline__ long long floor_div(long long a, long long b) {
@@ -284,14 +273,66 @@ row_copy_kernel(const T* __restrict__ src, const int32_t* __restrict__ rows,
 // K2: hp (L,Rh) int32, out (L,) int32; one block of L warps, warp w owns
 // lane w. mode 0 store2d: out[w] = min_q hp[w,q], through shared memory;
 // 1 sload / 2 sload_dyn: v[w] = min_q hp[w,q] + w in shared memory, out[w] =
-// sum_l v[idx(l)] with idx(l) = l (1) or (l + dyn) % L (2), a runtime index;
-// 3 smem_dma: the same v, moved by bulk copies to `aux` (L int32 in global
-// memory) and back into a second shared array, then summed from there;
-// 4 whileloop: out[w] = n_iter * sum_q hp[w,q], a loop whose trip count is
-// a runtime argument. (A shared-to-shared bulk copy within one block,
-// cp.async.bulk.shared::cluster.shared::cta, stopped with an illegal
-// instruction on an H100 outside a cluster launch.)
+// sum_l v[idx(l)] with idx(l) = l (1) or (l + dyn) mod L (2), a runtime
+// index; 3 smem_dma: the same v, moved into a second shared array by a bulk
+// copy first and summed from there; 4 whileloop: out[w] = n_iter * sum_q
+// hp[w,q], a loop whose trip count is a runtime argument. Sums in uint32:
+// they wrap as the plain version's int32 sums do.
+//
+// A mode does only the synchronisation it needs: store2d and whileloop
+// stay inside their warp (no block barrier), the others wait at one block
+// barrier for the lane vector and then sum it in one warp reduction, lane
+// j of every warp reading element idx(j). whileloop loads its row once and
+// adds each lane's part n_iter times in registers. smem_dma's copy is the
+// counterpart of the TPU probe's VMEM -> SMEM DMA: a shared-to-shared
+// cp.async.bulk on an mbarrier in a one-block cluster launch (aux null),
+// or, for timing against it, a round trip through `aux` (L int32 in global
+// memory): a bulk store, its completion, and a bulk load (a
+// shared::cluster copy outside a cluster launch stops with an illegal
+// instruction).
 constexpr int kMaxVecLanes = 32;
+enum LaneVecMode { kStore2d, kSload, kSloadDyn, kSmemDma, kWhileLoop };
+// A lane's loads of a row, issued kVecLoads at a time: a loop over them
+// with a runtime trip count issues one load a latency, the next one behind
+// the use of the last (two of them a lane at the probes' Rh = 64).
+constexpr int kVecLoads = 4;
+
+// op folded over a lane's values row[q], q = lane + 32 i < Rh, from `pad`
+// (which also stands in for the values past Rh).
+template <typename Op>
+__device__ __forceinline__ int32_t fold_row(const int32_t* row, int Rh,
+                                            int lane, int32_t pad, Op op) {
+  int32_t acc = pad;
+  for (int q0 = 0; q0 < Rh; q0 += 32 * kVecLoads) {
+    int32_t v[kVecLoads];
+#pragma unroll
+    for (int u = 0; u < kVecLoads; ++u) {
+      const int q = q0 + 32 * u + lane;
+      v[u] = q < Rh ? row[q] : pad;
+    }
+#pragma unroll
+    for (int u = 0; u < kVecLoads; ++u) acc = op(acc, v[u]);
+  }
+  return acc;
+}
+
+// Warp-wide sum (wrapping) and minimum in one redux.sync each, where five
+// dependent shuffles would take five shuffle latencies.
+__device__ __forceinline__ uint32_t warp_sum_u32(uint32_t v) {
+  return __reduce_add_sync(kFull, v);
+}
+
+// A bulk copy of `bytes` between two arrays of this block's shared memory,
+// completing on `bar` (in a cluster launch, even of one block).
+__device__ __forceinline__ void bulk_copy_s2s(void* dst, const void* src,
+                                              uint32_t bytes, uint64_t* bar) {
+  mbar_arrive_expect_tx(bar, bytes);
+  asm volatile(
+      "cp.async.bulk.shared::cluster.shared::cta.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "r"(smem_u32(src)), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
 
 __global__ void lane_vec_kernel(const int32_t* __restrict__ hp,
                                 int32_t* __restrict__ aux,
@@ -302,91 +343,220 @@ __global__ void lane_vec_kernel(const int32_t* __restrict__ hp,
   __shared__ __align__(8) uint64_t bar;
   const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int32_t* row = hp + static_cast<size_t>(w) * Rh;
+  // what needs no input goes first, under the row's loads: smem_dma's
+  // barrier, and the element idx(lane) that the lane sums
+  if (mode == kSmemDma && threadIdx.x == 0) mbar_init(&bar);
+  int j = lane;
+  if (mode == kSloadDyn && lane < L) {  // (lane + dyn) mod L, in 32 bits
+    const int d = dyn % L;
+    j += d < 0 ? d + L : d;
+    if (j >= L) j -= L;
+  }
 
-  if (mode == 4) {
-    int acc = 0, it = 0;
+  if (mode == kWhileLoop) {
+    const uint32_t part = static_cast<uint32_t>(
+        fold_row(row, Rh, lane, 0, [](int32_t a, int32_t b) {
+          return static_cast<int32_t>(static_cast<uint32_t>(a) +
+                                      static_cast<uint32_t>(b));
+        }));
+    uint32_t acc = 0;
+    int it = 0;
+#pragma unroll 1
     while (it < n_iter) {
-      int s = 0;
-      for (int q = lane; q < Rh; q += 32) s += row[q];
-      acc += warp_sum(s);
+      acc += part;
+      // one add an iteration: kept a loop, not folded into a multiply
+      asm volatile("" : "+r"(acc));
       ++it;
     }
-    if (lane == 0) out[w] = acc;
+    acc = warp_sum_u32(acc);
+    if (lane == 0) out[w] = static_cast<int32_t>(acc);
     return;
   }
-  int m = INT32_MAX;
-  for (int q = lane; q < Rh; q += 32) m = min(m, row[q]);
-  m = warp_min(m);
-  if (lane == 0) vec[w] = mode == 0 ? m : m + w;
+  const int m = __reduce_min_sync(
+      kFull, fold_row(row, Rh, lane, INT32_MAX,
+                      [](int32_t a, int32_t b) { return min(a, b); }));
+  if (mode == kStore2d) {
+    if (lane == 0) vec[w] = m;
+    __syncwarp();
+    if (lane == 0) out[w] = vec[w];
+    return;
+  }
+  if (lane == 0)
+    vec[w] = static_cast<int32_t>(static_cast<uint32_t>(m) +
+                                  static_cast<uint32_t>(w));
   const int32_t* from = vec;
-  if (mode == 3) {
-    fence_proxy_async();
-    if (threadIdx.x == 0) mbar_init(&bar);
+  if (mode == kSmemDma) {
+    fence_proxy_async();  // the lane vector's writes before the copy reads it
     __syncthreads();
     if (threadIdx.x == 0) {
       const uint32_t bytes = static_cast<uint32_t>(L * sizeof(int32_t));
-      bulk_store_s2g(aux, vec, bytes);
-      bulk_copy_g2s(vec2, aux, bytes, &bar);
+      if (aux == nullptr) {
+        bulk_copy_s2s(vec2, vec, bytes, &bar);
+      } else {
+        bulk_store_s2g(aux, vec, bytes);
+        bulk_copy_g2s(vec2, aux, bytes, &bar);
+      }
     }
     mbar_wait(&bar, 0);
     from = vec2;
   } else {
     __syncthreads();
   }
-  if (lane != 0) return;
-  if (mode == 0) {
-    out[w] = from[w];
-    return;
-  }
-  int acc = 0;
-  for (int l = 0; l < L; ++l) acc += from[mode == 2 ? (l + dyn) % L : l];
-  out[w] = acc;
+  uint32_t v = lane < L ? static_cast<uint32_t>(from[j]) : 0u;
+  v = warp_sum_u32(v);
+  if (lane == 0) out[w] = static_cast<int32_t>(v);
 }
 
 // ---------------------------------------------------------------------------
-// K3: ids (L,R,S) int32, hp (L,R) int32, out (L,) int32. One block per lane,
-// n_iter iterations: r = the first q with hp[q] == 2 and q >= 2 it (else
-// R - 1); bulk copy of ids[l, r] into the stage; the stage into slot it % NC
-// of the zero-filled (NC, S) candidate buffer; acc += the buffer's sum.
-// Shared memory: the barrier (128 bytes), the stage (S), the buffer (NC*S).
-__global__ void __launch_bounds__(kThreads)
-v3_loop_kernel(const int32_t* __restrict__ ids, const int32_t* __restrict__ hp,
-               int32_t* __restrict__ out, int R, int S, int NC, int n_iter) {
+// K3: ids (L,R,S) int32, hp (L,R) int32, out (L,) int32. n_iter iterations
+// per lane: r = the first q with hp[q] == 2 and q >= 2 it (else R - 1); row
+// ids[l, r] into slot it % NC of an (NC, S) candidate buffer that starts
+// at zero; acc += the buffer's sum. Sums in uint32, wrapping as the plain
+// version's int32 sums do.
+//
+// The loop kernel's candidate upkeep in miniature (its warp 0 picks a
+// read, bulk-copies its row into a slot and sums it), one warp per lane,
+// up to wpb lanes a block, each warp on its own: its mbarrier, its NC slot
+// sums, the ballot words of its eligible reads and its (NC, S) slot rows
+// in shared memory, and no block barrier. The eligible reads are found
+// once, as one ballot word per 32 reads; each iteration's pick is then the
+// first set bit at or after 2 it among the words (a ballot over the words
+// left, two find-first-sets and a shuffle). The row is copied straight
+// into its slot: the warp's reads of that slot's previous row are ordered
+// before the async write (fence.proxy.async, __syncwarp), lane 0 issues
+// cp.async.bulk of S int32 on the warp's mbarrier and the warp waits on
+// the iteration's parity (kBulk); or the warp copies it with its own
+// 16-byte loads (kBulk false, for timing against it). The warp sums the
+// row (16-byte shared loads, or the loaded registers, and a warp sum) and
+// lane 0 keeps the total as total += new - slot_sum[k]: nothing is
+// zero-filled, since a slot never written adds 0, and only the row that
+// changed is summed. Each iteration's pick, copy, wait and sum complete
+// before the next one starts (the loop kernel's next pick waits on the
+// decisions its sums make), so the loop's time per iteration is the
+// latency of that chain.
+//
+// Dynamic shared memory of a block (kernels/probes.py v3_loop_plan): wpb
+// mbarriers (8 bytes each), then wpb x NC slot sums and wpb x nw ballot
+// words (4 bytes each, nw = ceil(R / 32)), then from the next 16-byte
+// boundary wpb x NC slot rows of S int32.
+constexpr int kV3MaxWarps = 32;
+constexpr int kRowLoads = 8;
+
+__host__ __device__ inline size_t v3_head_bytes(int wpb, int NC, int R) {
+  const int nw = (R + 31) / 32;
+  return align_up(8u * wpb + 4u * wpb * (NC + nw), 16u);
+}
+
+__host__ __device__ inline size_t v3_smem_bytes(int wpb, int NC, int S,
+                                                int R) {
+  return v3_head_bytes(wpb, NC, R) + static_cast<size_t>(wpb) * NC * S * 4;
+}
+
+__device__ __forceinline__ uint32_t sum4(const int4& v) {
+  return static_cast<uint32_t>(v.x) + static_cast<uint32_t>(v.y) +
+         static_cast<uint32_t>(v.z) + static_cast<uint32_t>(v.w);
+}
+
+// The first read q >= t (t <= R) whose bit is set in the nw ballot words
+// `words`, or R - 1 when there is none; warp-uniform.
+__device__ __forceinline__ int v3_pick(const uint32_t* words, int nw, int t,
+                                       int R, int lane) {
+  const int tw = t >> 5;
+  for (int c = tw; c < nw; c += 32) {
+    const int j = c + lane;
+    uint32_t m = j < nw ? words[j] : 0u;
+    if (j == tw) m &= ~0u << (t & 31);
+    const uint32_t b = __ballot_sync(kFull, m != 0u);
+    if (b) {
+      const int f = __ffs(b) - 1;
+      return 32 * (c + f) + __ffs(__shfl_sync(kFull, m, f)) - 1;
+    }
+  }
+  return R - 1;
+}
+
+template <bool kBulk>
+__global__ void v3_loop_kernel(const int32_t* __restrict__ ids,
+                               const int32_t* __restrict__ hp,
+                               int32_t* __restrict__ out, int L, int R, int S,
+                               int NC, int n_iter) {
   extern __shared__ __align__(128) unsigned char smem[];
-  __shared__ int red[kWarps];
-  uint64_t* bar = reinterpret_cast<uint64_t*>(smem);
-  int32_t* stage = reinterpret_cast<int32_t*>(smem + 128);
-  int32_t* cids = stage + S;
-  const int l = blockIdx.x, tid = threadIdx.x;
+  const int wpb = blockDim.x >> 5, w = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int l = blockIdx.x * wpb + w;
+  if (l >= L) return;  // a whole warp; no block barrier follows
+  const int nw = (R + 31) / 32;
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem) + w;
+  uint32_t* slot_sum =
+      reinterpret_cast<uint32_t*>(smem + 8 * wpb) + static_cast<size_t>(w) * NC;
+  uint32_t* words = reinterpret_cast<uint32_t*>(smem + 8 * wpb) +
+                    static_cast<size_t>(wpb) * NC + static_cast<size_t>(w) * nw;
+  int32_t* rows = reinterpret_cast<int32_t*>(smem + v3_head_bytes(wpb, NC, R)) +
+                  static_cast<size_t>(w) * NC * S;
   const int32_t* lane_hp = hp + static_cast<size_t>(l) * R;
   const int32_t* lane_ids = ids + static_cast<size_t>(l) * R * S;
 
-  for (int i = tid; i < NC * S; i += kThreads) cids[i] = 0;
-  fence_proxy_async();
-  if (tid == 0) mbar_init(bar);
-  __syncthreads();
-
-  int acc = 0;
-  for (int it = 0; it < n_iter; ++it) {
-    int first = R - 1;
-    for (int q = tid; q < R; q += kThreads)
-      if (lane_hp[q] == 2 && q >= 2 * it) first = min(first, q);
-    const int r = block_min(first, red);
-    if (tid == 0)
-      bulk_copy_g2s(stage, lane_ids + static_cast<size_t>(r) * S,
-                    static_cast<uint32_t>(S * sizeof(int32_t)), bar);
-    mbar_wait(bar, it & 1);
-    int32_t* dst = cids + static_cast<size_t>(it % NC) * S;
-    for (int s = tid; s < S; s += kThreads) dst[s] = stage[s];
-    // the next iteration's copy overwrites the stage: order these reads
-    // of it before that write
-    fence_proxy_async();
-    __syncthreads();
-    int part = 0;
-    for (int i = tid; i < NC * S; i += kThreads) part += cids[i];
-    acc += block_sum(part, red);
+  if (kBulk && lane == 0) mbar_init(bar);
+  if (lane == 0)
+    for (int k = 0; k < NC; ++k) slot_sum[k] = 0u;
+  for (int c0 = 0; c0 < nw; c0 += kVecLoads) {  // loads issued together
+    bool e[kVecLoads];
+#pragma unroll
+    for (int u = 0; u < kVecLoads; ++u) {
+      const int q = 32 * (c0 + u) + lane;
+      e[u] = q < R && lane_hp[q] == 2;
+    }
+#pragma unroll
+    for (int u = 0; u < kVecLoads; ++u) {
+      const uint32_t b = __ballot_sync(kFull, e[u]);
+      if (lane == 0 && c0 + u < nw) words[c0 + u] = b;
+    }
   }
-  if (tid == 0) out[l] = acc;
+  __syncwarp();
+
+  const int nv = S / 4;  // 16-byte vectors a row
+  uint32_t total = 0, acc = 0;
+  for (int it = 0, k = 0; it < n_iter; ++it, k = k + 1 < NC ? k + 1 : 0) {
+    const int t = it < (R + 1) / 2 ? 2 * it : R;
+    const int r = v3_pick(words, nw, t, R, lane);  // k = it % NC
+    int4* dst = reinterpret_cast<int4*>(rows + static_cast<size_t>(k) * S);
+    const int4* src =
+        reinterpret_cast<const int4*>(lane_ids + static_cast<size_t>(r) * S);
+    uint32_t part = 0;
+    if (kBulk) {
+      fence_proxy_async();
+      __syncwarp();
+      if (lane == 0)
+        bulk_copy_g2s(dst, src, static_cast<uint32_t>(S * sizeof(int32_t)),
+                      bar);
+      mbar_wait(bar, it & 1);
+    }
+    // kRowLoads 16-byte loads a lane at a time, issued together (S = 1536:
+    // 384 vectors, 12 a lane)
+    for (int i0 = 0; i0 < nv; i0 += 32 * kRowLoads) {
+      int4 v[kRowLoads];
+#pragma unroll
+      for (int u = 0; u < kRowLoads; ++u) {
+        const int i = i0 + 32 * u + lane;
+        v[u] = i < nv ? (kBulk ? dst[i] : src[i]) : make_int4(0, 0, 0, 0);
+      }
+#pragma unroll
+      for (int u = 0; u < kRowLoads; ++u) {
+        const int i = i0 + 32 * u + lane;
+        if (!kBulk && i < nv) dst[i] = v[u];
+        part += sum4(v[u]);
+      }
+    }
+    uint32_t row_sum = warp_sum_u32(part);
+    // the next pick starts after this sum, as the loop kernel's waits on
+    // its decisions: no load of the next iteration moves above it
+    asm volatile("" : "+r"(row_sum) : : "memory");
+    if (lane == 0) {
+      total += row_sum - slot_sum[k];
+      slot_sum[k] = row_sum;
+      acc += total;
+    }
+  }
+  if (lane == 0) out[l] = static_cast<int32_t>(acc);
 }
 
 // ---------------------------------------------------------------------------
@@ -644,6 +814,20 @@ __global__ void stile_ratio_kernel(const float* __restrict__ c0,
   }
 }
 
+// The launch floor: a kernel that does nothing. Launched at a probe's grid,
+// block and cluster shape, its device time is what a launch of that shape
+// costs before any work, the floor under that probe's time. touch_kernel
+// adds the least a kernel that reads its input does: thread 0 of each
+// block loads one int32 and stores it (a dependent global read and
+// write).
+__global__ void empty_kernel() {}
+
+__global__ void touch_kernel(const int32_t* __restrict__ src,
+                             int32_t* __restrict__ dst) {
+  const size_t b = static_cast<size_t>(blockIdx.y) * gridDim.x + blockIdx.x;
+  if (threadIdx.x == 0) dst[b] = src[b];
+}
+
 template <typename T>
 int launch_row_copy(const void* src, const void* rows, const void* slots,
                     void* buf, void* lane_sum, void* total, int L, int R,
@@ -725,31 +909,102 @@ extern "C" int pomfret_probe_row_copy_launch(int elt_bytes, const void* src,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+// lane_vec: aux null takes smem_dma's on-chip copy (a one-block cluster
+// launch), else its round trip through aux; smem_dma needs L % 4 == 0.
 extern "C" int pomfret_probe_lane_vec_launch(const void* hp, void* aux,
                                              void* out, int L, int Rh,
                                              int mode, int n_iter, int dyn,
                                              void* stream) {
-  if (L <= 0 || L > kMaxVecLanes)
+  if (L <= 0 || L > kMaxVecLanes || mode < kStore2d || mode > kWhileLoop ||
+      (mode == kSmemDma && L % 4))
     return static_cast<int>(cudaErrorInvalidValue);
-  lane_vec_kernel<<<1, 32 * L, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(hp), static_cast<int32_t*>(aux),
-      static_cast<int32_t*>(out), L, Rh, mode, n_iter, dyn);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(1);
+  cfg.blockDim = dim3(32 * L);
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = mode == kSmemDma && aux == nullptr ? 1 : 0;
+  const cudaError_t e = cudaLaunchKernelEx(
+      &cfg, lane_vec_kernel, static_cast<const int32_t*>(hp),
+      static_cast<int32_t*>(aux), static_cast<int32_t*>(out), L, Rh, mode,
+      n_iter, dyn);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// v3_loop: wpb (1 to kV3MaxWarps) lanes a block (kernels/probes.py
+// v3_loop_plan); S a positive multiple of 4 (16-byte rows); bulk 1 copies
+// each row by cp.async.bulk, 0 by the warp's own loads. The shared-memory
+// opt-in is set once per (kernel, device), and only for a block above the
+// 48 KB that every launch may take.
+template <bool kBulk>
+int launch_v3_loop(const void* ids, const void* hp, void* out, int L, int R,
+                   int S, int NC, int n_iter, int wpb, cudaStream_t st) {
+  static std::atomic<unsigned long long> optin{0};
+  const size_t shm = v3_smem_bytes(wpb, NC, S, R);
+  if (shm > 48 * 1024) {
+    const int rc = allow_optin(v3_loop_kernel<kBulk>, optin);
+    if (rc != 0) return rc;
+  }
+  v3_loop_kernel<kBulk><<<(L + wpb - 1) / wpb, 32 * wpb, shm, st>>>(
+      static_cast<const int32_t*>(ids), static_cast<const int32_t*>(hp),
+      static_cast<int32_t*>(out), L, R, S, NC, n_iter);
   return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" int pomfret_probe_v3_loop_launch(const void* ids, const void* hp,
                                             void* out, int L, int R, int S,
-                                            int NC, int n_iter,
-                                            void* stream) {
+                                            int NC, int n_iter, int wpb,
+                                            int bulk, void* stream) {
   if (L <= 0) return 0;
-  const size_t shm = 128 + static_cast<size_t>(NC + 1) * S * sizeof(int32_t);
-  cudaError_t e = cudaFuncSetAttribute(
-      v3_loop_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(shm));
+  if (R < 1 || S < 4 || S % 4 || NC < 1 || n_iter < 0 || wpb < 1 ||
+      wpb > kV3MaxWarps)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return bulk ? launch_v3_loop<true>(ids, hp, out, L, R, S, NC, n_iter, wpb,
+                                     st)
+              : launch_v3_loop<false>(ids, hp, out, L, R, S, NC, n_iter, wpb,
+                                      st);
+}
+
+// The empty kernel on a (grid_x, grid_y) grid of `block` threads, in
+// clusters of `cluster` blocks along x (0: a launch without clusters; up
+// to kMaxClusterLanes, dividing grid_x); with src and dst (grid_x * grid_y
+// int32 each), touch_kernel instead.
+extern "C" int pomfret_probe_empty_launch(const void* src, void* dst,
+                                          int grid_x, int grid_y, int block,
+                                          int cluster, void* stream) {
+  if (grid_x < 1 || grid_y < 1 || block < 1 || cluster < 0 ||
+      cluster > kMaxClusterLanes || (cluster > 0 && grid_x % cluster))
+    return static_cast<int>(cudaErrorInvalidValue);
+  static std::atomic<unsigned long long> wide{0}, wide_touch{0};
+  if (cluster > 8) {
+    const int rc = src ? allow_wide_clusters(touch_kernel, wide_touch)
+                       : allow_wide_clusters(empty_kernel, wide);
+    if (rc != 0) return rc;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(grid_x, grid_y);
+  cfg.blockDim = dim3(block);
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = cluster > 0 ? 1 : 0;
+  const cudaError_t e =
+      src ? cudaLaunchKernelEx(&cfg, touch_kernel,
+                               static_cast<const int32_t*>(src),
+                               static_cast<int32_t*>(dst))
+          : cudaLaunchKernelEx(&cfg, empty_kernel);
   if (e != cudaSuccess) return static_cast<int>(e);
-  v3_loop_kernel<<<L, kThreads, shm, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(ids), static_cast<const int32_t*>(hp),
-      static_cast<int32_t*>(out), R, S, NC, n_iter);
   return static_cast<int>(cudaGetLastError());
 }
 

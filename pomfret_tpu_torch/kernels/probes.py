@@ -12,8 +12,8 @@ each probe and variant to one of them:
 - `lane_vec` (K2): per-lane vector and scalar scratch moves and a loop with
   a runtime trip count (probe_v3_parts.py store2d, sload, sload_dyn,
   smem_dma, whileloop);
-- `v3_loop` (K3): a loop in the kernel of candidate pick, row copy,
-  placement and sum (probe_v3_feasibility.py);
+- `v3_loop` (K3): a loop in the kernel of candidate pick, row copy into a
+  slot and sum (probe_v3_feasibility.py);
 - `stile` (K4): a masked ratio sum over all sites or only the site tiles
   of the batch's range, for n_iter iterations (probe_stile.py,
   probe_stile2.py).
@@ -25,6 +25,8 @@ called as the wrapper is); any other device raises. Scratch reads as
 zero where the TPU probes read scratch rows they never wrote.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -38,6 +40,7 @@ MAX_CLUSTER_LANES = 16           # row_copy: the lanes are one block cluster
 COPY_CHUNKS = 4                  # row_copy: a lane's copy in up to 4 pieces,
 MIN_CHUNK_BYTES = 4096           # each on its own mbarrier, of >= 4 KB
 STILE_WARPS = 4                  # stile: the k's (warps) of a block
+V3_LOOP_WARPS = 4                # v3_loop: the lanes (warps) of a block
 
 
 def _device_of(name, t):
@@ -169,10 +172,23 @@ def lane_vec_plain(hp, mode: str, *, n_iter: int = 0, dyn: int = 0):
 
 
 def lane_vec(hp, mode: str, *, n_iter: int = 0, dyn: int = 0):
-    """K2: one block, one warp per lane. CUDA: the kernel (smem_dma moves
-    the lane vector by bulk copies to a global scratch of L int32 and back
-    into shared memory, so L must be a multiple of 4); CPU: the plain
-    version."""
+    """K2: one block, one warp per lane; a block barrier only where warps
+    exchange values (sload, sload_dyn, smem_dma), each lane vector summed in
+    one warp reduction. CUDA: the kernel (smem_dma moves the lane vector by
+    a shared-to-shared bulk copy in a one-block cluster launch, so L must be
+    a multiple of 4); CPU: the plain version."""
+    return _lane_vec(hp, mode, n_iter, dyn, cluster=True)
+
+
+def lane_vec_dma(hp, *, cluster: bool):
+    """lane_vec's smem_dma, its bulk copy on chip in a one-block cluster
+    (cluster, the wrapper's) or as a round trip through a global scratch
+    of L int32: the same bits either way, so that the two routes can be
+    timed against each other."""
+    return _lane_vec(hp, "smem_dma", 0, 0, cluster=cluster)
+
+
+def _lane_vec(hp, mode, n_iter, dyn, *, cluster):
     dev = _device_of("lane_vec", hp)
     if mode not in LANE_VEC_MODES:
         raise ValueError(f"unknown lane_vec mode {mode!r}")
@@ -183,10 +199,13 @@ def lane_vec(hp, mode: str, *, n_iter: int = 0, dyn: int = 0):
     if not 0 < L <= MAX_VEC_LANES or (mode == "smem_dma" and L % 4):
         raise ValueError(f"lane_vec: {L} lanes (1-{MAX_VEC_LANES}, a "
                          "multiple of 4 for smem_dma)")
-    aux = torch.empty(L, dtype=torch.int32, device=dev)
+    if Rh < 1:
+        raise ValueError("lane_vec: no values in a lane's row")
+    aux = (torch.empty(L, dtype=torch.int32, device=dev)
+           if mode == "smem_dma" and not cluster else None)
     out = torch.empty(L, dtype=torch.int32, device=dev)
     _launch(dev, "pomfret_probe_lane_vec_launch", hp.data_ptr(),
-            aux.data_ptr(), out.data_ptr(), L, Rh,
+            None if aux is None else aux.data_ptr(), out.data_ptr(), L, Rh,
             LANE_VEC_MODES.index(mode), n_iter, dyn)
     lane_vec.launches += 1
     return out
@@ -217,24 +236,59 @@ def v3_loop_plain(ids, hp, *, NC: int, n_iter: int):
     return acc
 
 
+@functools.lru_cache(maxsize=None)   # a Python loop, once per shape
+def v3_loop_plan(L: int, R: int, NC: int, S: int):
+    """(lanes a block, dynamic shared bytes of a block) of v3_loop's kernel:
+    one warp per lane, up to V3_LOOP_WARPS lanes (and at most L) a block,
+    fewer where their shared memory would not fit one block. A warp keeps
+    an 8-byte mbarrier, NC slot sums and ceil(R / 32) ballot words of 4
+    bytes, and, from the next 16-byte boundary after every warp's, NC slot
+    rows of S int32."""
+    nw = -(-R // 32)
+
+    def shm(w):
+        return -(-(8 * w + 4 * w * (NC + nw)) // 16) * 16 + 4 * w * NC * S
+    wpb = max(1, min(V3_LOOP_WARPS, L))
+    while wpb > 1 and shm(wpb) > MAX_SHARED_BYTES - 1024:
+        wpb -= 1
+    return wpb, shm(wpb)
+
+
 def v3_loop(ids, hp, *, NC: int, n_iter: int):
-    """K3: one block per lane; each iteration's row arrives by
-    cp.async.bulk on an mbarrier. CUDA: the kernel; CPU: the plain
-    version."""
+    """K3: one warp per lane, no block barrier; each iteration's row
+    arrives straight in its slot by cp.async.bulk on the warp's mbarrier,
+    and only the changed slot is summed. CUDA: the kernel (16-byte rows:
+    S a multiple of 4; one warp's NC rows must fit one block's shared
+    memory); CPU: the plain version."""
+    return _v3_loop(ids, hp, NC, n_iter, bulk=True)
+
+
+def v3_loop_loaded(ids, hp, *, NC: int, n_iter: int):
+    """v3_loop, with each row copied into its slot by the warp's own
+    16-byte loads (no bulk copy, no mbarrier): the same bits, so that the
+    two copies can be timed against each other."""
+    return _v3_loop(ids, hp, NC, n_iter, bulk=False)
+
+
+def _v3_loop(ids, hp, NC, n_iter, *, bulk):
     dev = _device_of("v3_loop", ids)
     if dev.type == "cpu":
         return v3_loop_plain(ids, hp, NC=NC, n_iter=n_iter)
     L, R, S = ids.shape
     _check("ids", ids, (torch.int32,), (L, R, S), dev)
     _check("hp", hp, (torch.int32,), (L, R), dev)
-    if (S * 4) % 16 or ids.data_ptr() % 16:
-        raise ValueError(f"v3_loop: a bulk copy needs 16-byte aligned rows "
+    if S == 0 or (S * 4) % 16 or ids.data_ptr() % 16:
+        raise ValueError(f"v3_loop: a row copy needs 16-byte aligned rows "
                          f"(S={S})")
-    if 128 + (NC + 1) * S * 4 > MAX_SHARED_BYTES - 1024 or NC <= 0:
+    if NC <= 0 or R <= 0 or n_iter < 0:
+        raise ValueError(f"v3_loop: NC={NC}, R={R}, n_iter={n_iter}")
+    wpb, shm = v3_loop_plan(L, R, NC, S)
+    if shm > MAX_SHARED_BYTES - 1024:
         raise ValueError(f"v3_loop: NC={NC} x S={S} does not fit one block")
     out = torch.empty(L, dtype=torch.int32, device=dev)
     _launch(dev, "pomfret_probe_v3_loop_launch", ids.data_ptr(),
-            hp.data_ptr(), out.data_ptr(), L, R, S, NC, n_iter)
+            hp.data_ptr(), out.data_ptr(), L, R, S, NC, n_iter, wpb,
+            int(bool(bulk)))
     v3_loop.launches += 1
     return out
 
@@ -359,6 +413,36 @@ def stile_ratios(c0, n_iter: int, *, rcp: bool = True):
 
 
 stile_ratios.launches = 0
+
+# ---------------------------------------------------------------------------
+# The launch floor
+# ---------------------------------------------------------------------------
+
+def launch_floor(device, grid, block: int, cluster: int = 0, *,
+                 touch=None):
+    """Launch the empty kernel on `device` (CUDA only) at a probe's launch
+    shape: a grid of (x, y) blocks of `block` threads, in clusters of
+    `cluster` blocks along x (0: no cluster launch). Its device time is
+    what a launch of that shape costs before any work. With `touch`, an
+    int32 CUDA tensor of 2 x y elements, thread 0 of block b loads
+    touch[b] and stores it into touch[x y + b] instead: the least a kernel
+    that reads its input and writes its output costs."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        raise ValueError(f"launch_floor: {dev} is not a CUDA device")
+    if dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    src = dst = None
+    if touch is not None:
+        n = grid[0] * grid[1]
+        _check("touch", touch, (torch.int32,), (2 * n,), dev)
+        src, dst = touch.data_ptr(), touch[n:].data_ptr()
+    _launch(dev, "pomfret_probe_empty_launch", src, dst, grid[0], grid[1],
+            block, cluster)
+    launch_floor.launches += 1
+
+
+launch_floor.launches = 0
 
 # the probe kernels' wrappers by kernel name; each counts its launches
 PROBE_KERNELS = {"probe_row_copy": row_copy, "probe_lane_vec": lane_vec,

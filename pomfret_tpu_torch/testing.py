@@ -938,40 +938,116 @@ def stile_edge_inputs(case: str, seed: int, B: int = 32, NC: int = 16,
                         np.int32))
 
 
-def row_copy_two_streams(device, trials: int, spin_cycles: int = 200_000):
-    """Two row_copy launches in flight at once, on two streams, each queued
-    behind a spin kernel of its own so that both start together; returns
-    the trials whose lane sums or totals differ from the plain version's
-    (an empty list when each launch kept its own total)."""
+def _two_streams(device, calls, wants, trials: int, spin_cycles: int):
+    """Run each of `calls` (no-argument functions launching one kernel and
+    returning its outputs) on a stream of its own, each queued behind a
+    spin kernel of its own so that both start together, `trials` times;
+    returns the trials in which some output differs from its CPU tensor
+    in `wants`."""
     import torch
-    from .kernels import probes as kp
-    W, NB = 8, 8
-    src = [torch.from_numpy((np.arange(8 * 64 * 256, dtype=np.int64)
-                             .reshape(8, 64, 256) % (7 + k) - k)
-                            .astype(np.int32)) for k in (1, 2)]
-    rows = [torch.tensor(v, dtype=torch.int32)
-            for v in ([0, 5, 9, 13, 17, 21, 25, 56], [56, -1, 3, 7, 11, 40,
-                                                      44, 48])]
-    slots = torch.tensor([0, 1, -1, 0, 0, 0, 0, 0], dtype=torch.int32)
-    want = [kp.row_copy_plain(s, r, slots, W=W, NB=NB)[:2]
-            for s, r in zip(src, rows)]
-    dev = [(s.to(device), r.to(device), slots.to(device))
-           for s, r in zip(src, rows)]
-    streams = [torch.cuda.Stream(device) for _ in dev]
+    streams = [torch.cuda.Stream(device) for _ in calls]
     for st in streams:
         st.wait_stream(torch.cuda.current_stream(device))
     bad = []
     for trial in range(trials):
         got = []
-        for st, (s, r, sl) in zip(streams, dev):
+        for st, call in zip(streams, calls):
             with torch.cuda.stream(st):
                 torch.cuda._sleep(spin_cycles)
-                got.append(kp.row_copy(s, r, sl, W=W, NB=NB))
+                got.append(call())
         torch.cuda.synchronize(device)
-        for (lane, total, _), (wl, wt) in zip(got, want):
-            if not (torch.equal(lane.cpu(), wl) and torch.equal(total.cpu(), wt)):
-                bad.append(trial)
+        if not all(torch.equal(g.cpu(), w) for outs, ws in zip(got, wants)
+                   for g, w in zip(outs, ws)):
+            bad.append(trial)
     return bad
+
+
+def row_copy_two_streams(device, trials: int, spin_cycles: int = 200_000):
+    """Two row_copy launches in flight at once, on two streams (each
+    queued behind a spin kernel of its own so that both start together);
+    returns the trials whose lane sums or totals differ from the plain
+    version's (an empty list when each launch kept its own total)."""
+    from .kernels import probes as kp
+    W, NB = 8, 8
+    src = [torch_from((np.arange(8 * 64 * 256, dtype=np.int64)
+                       .reshape(8, 64, 256) % (7 + k) - k).astype(np.int32))
+           for k in (1, 2)]
+    rows = [torch_from(np.asarray(v, np.int32))
+            for v in ([0, 5, 9, 13, 17, 21, 25, 56], [56, -1, 3, 7, 11, 40,
+                                                      44, 48])]
+    slots = torch_from(np.asarray([0, 1, -1, 0, 0, 0, 0, 0], np.int32))
+    wants = [kp.row_copy_plain(s, r, slots, W=W, NB=NB)[:2]
+             for s, r in zip(src, rows)]
+    dev = [(s.to(device), r.to(device), slots.to(device))
+           for s, r in zip(src, rows)]
+    calls = [lambda a=a: kp.row_copy(*a, W=W, NB=NB)[:2] for a in dev]
+    return _two_streams(device, calls, wants, trials, spin_cycles)
+
+
+def v3_inputs(L: int, R: int, S: int, seed: int, *, none_eligible=()):
+    """numpy inputs of the v3 loop (ids (L,R,S), hp (L,R), int32): ids over
+    the whole int32 range, so that the sums wrap; hp in {0, 1, 2}, with the
+    lanes in `none_eligible` holding no eligible read (hp == 2)."""
+    r = np.random.default_rng(seed)
+    ids = r.integers(-2 ** 31, 2 ** 31, size=(L, R, S), dtype=np.int64)
+    hp = r.integers(0, 3, size=(L, R))
+    hp[list(none_eligible)] = np.where(hp[list(none_eligible)] == 2, 1,
+                                       hp[list(none_eligible)])
+    return dict(ids=ids.astype(np.int32), hp=hp.astype(np.int32))
+
+
+def v3_loop_two_streams(device, trials: int, spin_cycles: int = 200_000):
+    """Two v3_loop launches in flight at once, on two streams, with slots
+    reused (n_iter 9 > NC 4) and sums that wrap; returns the trials whose
+    outputs differ from the plain version's (an empty list when each launch
+    kept its own slots and sums)."""
+    from .kernels import probes as kp
+    ins = [v3_inputs(8, 64, 256, seed) for seed in (1, 2)]
+    wants = [(kp.v3_loop_plain(torch_from(i["ids"]), torch_from(i["hp"]),
+                               NC=4, n_iter=9),) for i in ins]
+    dev = [(torch_from(i["ids"]).to(device), torch_from(i["hp"]).to(device))
+           for i in ins]
+    calls = [lambda a=a: (kp.v3_loop(*a, NC=4, n_iter=9),) for a in dev]
+    return _two_streams(device, calls, wants, trials, spin_cycles)
+
+
+def v3_loop_bookkeeping(ids, hp, NC: int, n_iter: int):
+    """v3_loop_kernel's bookkeeping in numpy: a lane's eligible reads (hp
+    == 2) as 32-bit ballot words; each iteration's pick the first set bit
+    at or after read 2 it (else R - 1); a sum kept per slot, and the total
+    as total += new - slot_sum[it % NC] in uint32 arithmetic; acc += total.
+    Returns the (L,) int32 that the kernel writes."""
+    M = 0xFFFFFFFF
+    L, R, _ = ids.shape
+    nw = -(-R // 32)
+    elig = np.zeros((L, nw * 32), np.uint64)
+    elig[:, :R] = hp == 2
+    words = (elig.reshape(L, nw, 32) << np.arange(32, dtype=np.uint64)).sum(
+        axis=2)
+    out = np.zeros(L, np.int64)
+    for l in range(L):
+        slot_sum, total, acc = [0] * NC, 0, 0
+        for it in range(n_iter):
+            t = min(2 * it, R)
+            r = R - 1
+            for c in range(t >> 5, nw):
+                m = int(words[l, c])
+                if c == t >> 5:
+                    m &= (M << (t & 31)) & M
+                if m:
+                    r = 32 * c + (m & -m).bit_length() - 1
+                    break
+            new = int(ids[l, r].astype(np.int64).sum()) & M
+            total = (total + new - slot_sum[it % NC]) & M
+            slot_sum[it % NC] = new
+            acc = (acc + total) & M
+        out[l] = acc
+    return out.astype(np.uint32).view(np.int32)
+
+
+def torch_from(a):
+    import torch
+    return torch.from_numpy(np.ascontiguousarray(a))
 
 
 # The body of each process of run_processes: the CLI, then one line with

@@ -332,6 +332,26 @@ def compared(p: Probe):
     return fns
 
 
+def launch_shape(p: Probe, inputs):
+    """(grid (x, y), threads a block, cluster size or 0) of one launch of
+    p's kernel on these inputs, as its launcher launches it: the shape at
+    which kernels/probes.launch_floor measures its launch floor."""
+    if p.kernel == "probe_row_copy":
+        L = inputs["src"].shape[0]
+        return (L, 1), 256, L
+    if p.kernel == "probe_lane_vec":  # smem_dma: a one-block cluster
+        return (1, 1), 32 * inputs["hp"].shape[0], int(
+            p.kw["mode"] == "smem_dma")
+    if p.kernel == "probe_v3_loop":
+        L, R, S = inputs["ids"].shape
+        wpb = kp.v3_loop_plan(L, R, p.kw["NC"], S)[0]
+        return (-(-L // wpb), 1), 32 * wpb, 0
+    B, NC = inputs["cids"].shape[:2]
+    kpb = kp.stile_plan(NC, inputs["cids"].shape[2],
+                        inputs["cnt"].shape[1] // 2)[0]
+    return (-(-NC // kpb), B), 32 * kpb, 0
+
+
 def run_probe(p: Probe, device):
     """Run one entry on `device` through its kernel's wrapper (on the CPU,
     the plain version); returns (inputs, raw outputs, result, ok,

@@ -471,3 +471,105 @@ def test_probe_row_copy_two_streams(cuda):
     lane sums and total (no counter or other state shared between
     launches)."""
     assert testing.row_copy_two_streams(cuda, trials=20) == []
+
+
+# ---------------------------------------------------------------------------
+# The redesigned lane_vec and v3_loop kernels, bit for bit against the
+# plain versions (on the CPU, from the same inputs), and the launch floor
+# ---------------------------------------------------------------------------
+
+def _lane_vec_rows(L, Rh, seed):
+    """Rows with negative values and values whose sums wrap int32."""
+    r = np.random.default_rng(seed)
+    hp = r.integers(-2 ** 31, 2 ** 31, size=(L, Rh), dtype=np.int64)
+    hp[::2] = r.integers(-50, 50, size=hp[::2].shape)
+    return torch.from_numpy(hp.astype(np.int32))
+
+
+@pytest.mark.parametrize("mode", kp.LANE_VEC_MODES)
+def test_probe_lane_vec_modes(cuda, mode):
+    """Every mode at L in {1, 4, 8, 17, 32} and Rh in {1, 64, 1000}, with
+    n_iter in {0, 1, 5, 1000} (whileloop) and dyn in 0..2L (sload_dyn);
+    smem_dma by both routes where L is a multiple of 4, refused
+    elsewhere."""
+    for L in (1, 4, 8, 17, 32):
+        for Rh in (1, 64, 1000):
+            hp = _lane_vec_rows(L, Rh, 100 * L + Rh)
+            h = hp.to(cuda)
+            if mode == "smem_dma":
+                if L % 4:
+                    with pytest.raises(ValueError, match="multiple of 4"):
+                        kp.lane_vec(h, mode)
+                    continue
+                want = kp.lane_vec_plain(hp, mode)
+                for cluster in (True, False):
+                    got = kp.lane_vec_dma(h, cluster=cluster)
+                    assert torch.equal(got.cpu(), want), (L, Rh, cluster)
+            kw = ([dict(n_iter=n) for n in (0, 1, 5, 1000)]
+                  if mode == "whileloop" else
+                  [dict(dyn=d) for d in range(2 * L + 1)]
+                  if mode == "sload_dyn" else [{}])
+            for k in kw:
+                got = kp.lane_vec(h, mode, **k)
+                assert torch.equal(got.cpu(), kp.lane_vec_plain(hp, mode, **k)
+                                   ), (L, Rh, k)
+
+
+# (L, R, S, NC): the registry's shape, S = 4 and 1536, NC = 1 and 16, L = 1
+# and 200, R = 1 and 1000 (not a multiple of 32 at 1000: 31.25 words)
+V3_SHAPES = [(8, 64, 256, 4), (8, 64, 4, 1), (8, 64, 1536, 16),
+             (1, 1000, 256, 4), (8, 1000, 1536, 4), (200, 64, 256, 16),
+             (8, 1, 256, 4), (200, 1000, 4, 16), (1, 64, 1536, 16)]
+
+
+@pytest.mark.parametrize("L,R,S,NC", V3_SHAPES)
+def test_probe_v3_loop_shapes(cuda, L, R, S, NC):
+    """v3_loop (bulk copies) and v3_loop_loaded (the warp's loads) ==
+    v3_loop_plain at n_iter in {0, 1, 3, NC, NC+1, 9, 400} (slots reused
+    from NC+1 on; past R/2 every pick is R - 1), ids whose sums wrap int32,
+    and lanes without an eligible read."""
+    inp = testing.v3_inputs(L, R, S, L + R + S + NC,
+                            none_eligible=range(0, L, 3))
+    t = tpr.tensors(inp, "cpu")
+    c = tpr.tensors(inp, cuda)
+    for n_iter in sorted({0, 1, 3, NC, NC + 1, 9, 400}):
+        want = kp.v3_loop_plain(t["ids"], t["hp"], NC=NC, n_iter=n_iter)
+        for fn in (kp.v3_loop, kp.v3_loop_loaded):
+            got = fn(c["ids"], c["hp"], NC=NC, n_iter=n_iter)
+            assert torch.equal(got.cpu(), want), (fn.__name__, n_iter)
+
+
+def test_probe_v3_loop_two_streams(cuda):
+    """Two v3_loop launches in flight at once on two streams: each keeps
+    its own slots and sums."""
+    assert testing.v3_loop_two_streams(cuda, trials=20) == []
+
+
+def test_probe_v3_loop_refuses_what_it_cannot_take(cuda):
+    hp = torch.zeros(2, 4, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="16-byte"):
+        kp.v3_loop(torch.zeros(2, 4, 6, dtype=torch.int32, device=cuda), hp,
+                   NC=2, n_iter=1)
+    with pytest.raises(ValueError, match="does not fit"):
+        kp.v3_loop(torch.zeros(2, 4, 1024, dtype=torch.int32, device=cuda),
+                   hp, NC=64, n_iter=1)
+
+
+def test_probe_launch_floor_shapes(cuda):
+    """The empty kernel launches at the launch shape of every registry
+    entry (phase 3b's floors), and so does the one that copies an int32 a
+    block; each launch counts; a cluster that does not divide the grid is
+    refused."""
+    n0 = kp.launch_floor.launches
+    shapes = {tpr.launch_shape(p, p.make()) for p in tpr.PROBES.values()}
+    for shape in shapes:
+        kp.launch_floor(cuda, *shape)
+        n = shape[0][0] * shape[0][1]
+        touch = torch.arange(2 * n, dtype=torch.int32, device=cuda) - n
+        kp.launch_floor(cuda, *shape, touch=touch)
+        torch.cuda.synchronize()
+        assert torch.equal(touch[n:], touch[:n]), shape
+    assert kp.launch_floor.launches == n0 + 2 * len(shapes)
+    assert {s[2] for s in shapes} == {0, 1, 8}
+    with pytest.raises(RuntimeError, match="pomfret_probe_empty_launch"):
+        kp.launch_floor(cuda, (3, 1), 32, 2)

@@ -328,3 +328,85 @@ def test_row_copy_plain_buffer_sum_is_stage_sum_where_placed(dtype):
     assert int(total) == int(lane.sum()) and int(st_total) == int(staged.sum())
     copied = (rows >= 0) & (rows <= R - W)
     assert torch.equal(staged != 0, copied & (staged != 0))
+
+
+# ---------------------------------------------------------------------------
+# The v3 loop and the lane vectors: the identities the redesigned kernels
+# rely on, on the plain versions
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("iters", [1, 5, 9, 40])
+def test_v3_loop_plain_matches_jax_probe_iters(monkeypatch, iters):
+    """The JAX probe_v3_feasibility kernel in interpret mode at ITERS 1, 5,
+    9 and 40 (9 and 40 reuse slots of NC=4; from iteration 32 on no read
+    q >= 2 it is left and every pick is R - 1) == v3_loop_plain on the same
+    inputs, exactly."""
+    mod = _probe_module("probe_v3_feasibility")
+    monkeypatch.setattr(mod, "ITERS", iters)
+    recorded = _run_jax_probe(monkeypatch, "probe_v3_feasibility", "main")
+    assert len(recorded) == 1
+    t = tp.tensors(tp.PROBES[("probe_v3_feasibility", "main")].make(), "cpu")
+    got = kp.v3_loop_plain(t["ids"], t["hp"], NC=tp.NC, n_iter=iters)
+    assert np.array_equal(got.numpy(), recorded[0][:, 0])
+
+
+@pytest.mark.parametrize("L,R,S,NC,n_iter", [
+    (8, 64, 256, 4, 9), (5, 70, 8, 1, 40), (3, 1, 4, 4, 6),
+    (4, 100, 12, 16, 60), (2, 33, 4, 3, 20)])
+def test_v3_loop_bookkeeping_matches_plain(L, R, S, NC, n_iter):
+    """The kernel's bookkeeping (ballot-word picks, per-slot sums, the
+    uint32 total += new - old) == v3_loop_plain: ids whose sums wrap int32,
+    n_iter > NC (slots reused), a lane with no eligible read, R not a
+    multiple of 32 and R = 1; the timing route gives the same on the CPU."""
+    inp = testing.v3_inputs(L, R, S, L * R + n_iter, none_eligible=[L - 1])
+    t = tp.tensors(inp, "cpu")
+    want = kp.v3_loop_plain(t["ids"], t["hp"], NC=NC, n_iter=n_iter)
+    got = testing.v3_loop_bookkeeping(inp["ids"], inp["hp"], NC, n_iter)
+    assert np.array_equal(got, want.numpy())
+    assert torch.equal(kp.v3_loop_loaded(t["ids"], t["hp"], NC=NC,
+                                         n_iter=n_iter), want)
+    # the sums do wrap: the exact sums differ from the int32 results
+    rows = inp["ids"].astype(np.int64).sum(axis=2)
+    assert np.abs(rows).max() > 2 ** 31
+
+
+def test_lane_vec_plain_wraps_as_int32():
+    """whileloop == the int32 wrap of n_iter * sum_q hp, and the sloads ==
+    the int32 wrap of sum_l (min_q hp + l), where the exact sums overflow:
+    the kernel's uint32 adds give these bits."""
+    r = np.random.default_rng(4)
+    hp = r.integers(2 ** 30, 2 ** 31, size=(8, 64)).astype(np.int32)
+    hp[3] = -hp[3]
+    t = torch.from_numpy(hp)
+    for n_iter in (0, 1, 5, 1000):
+        want = (n_iter * hp.astype(np.int64).sum(axis=1)) % 2 ** 32
+        got = kp.lane_vec_plain(t, "whileloop", n_iter=n_iter)
+        assert np.array_equal(got.numpy(), want.astype(np.uint32).view(
+            np.int32)), n_iter
+    v = hp.astype(np.int64).min(axis=1) + np.arange(8)
+    want = np.full(8, v.sum() % 2 ** 32).astype(np.uint32).view(np.int32)
+    for mode, dyn in (("sload", 0), ("smem_dma", 0), ("sload_dyn", 11)):
+        got = kp.lane_vec_plain(t, mode, dyn=dyn)
+        assert np.array_equal(got.numpy(), want), mode
+    assert torch.equal(kp.lane_vec_dma(t, cluster=False), torch.from_numpy(
+        want))
+
+
+@pytest.mark.parametrize("L,R,NC,S", [(8, 64, 4, 256), (8, 1024, 4, 1536),
+                                      (200, 1000, 16, 1536), (1, 1, 1, 4),
+                                      (3, 100, 16, 256), (8, 64, 40, 1536)])
+def test_v3_loop_plan(L, R, NC, S):
+    """Up to V3_LOOP_WARPS lanes a block, never more than L, as many as
+    fit one block's shared memory: each warp's mbarrier, NC slot sums and
+    ceil(R / 32) ballot words, then from a 16-byte boundary its NC rows."""
+    wpb, shm = kp.v3_loop_plan(L, R, NC, S)
+    nw = -(-R // 32)
+
+    def size(w):
+        head = 8 * w + 4 * w * (NC + nw)
+        return head + (-head) % 16 + 4 * w * NC * S
+    assert 1 <= wpb <= min(kp.V3_LOOP_WARPS, L) and shm == size(wpb)
+    cap = kp.MAX_SHARED_BYTES - 1024
+    assert shm <= cap or wpb == 1
+    assert wpb == min(kp.V3_LOOP_WARPS, L) or size(wpb + 1) > cap
+    assert kp.v3_loop_plan(8, 64, 4, 256) == (4, 16512)
