@@ -8,6 +8,8 @@
     python3 chip_smoke.py --turns DIR      # phase 3b and methphase's walls
                                            # of DIR's tree (P) and this one
                                            # (C) in turns P C C P P C C P
+    python3 chip_smoke.py --v3-lanes       # card, build and v3_loop at 1,
+                                           # 2, 4 and 8 lanes a block
 
 Phases, each printing one line:
  1. card: the GPU's name and power limit (nvidia-smi);
@@ -50,13 +52,11 @@ Phases, each printing one line:
     [128,640), with the wrapper's quotient and with __fdiv_rn (equal),
     and its device time per iteration at S = 128-2048; each entry's
     launch floor (floor_ms: the empty kernel at its grid, block and
-    cluster shape, as often as the entry launches; touch_floor_ms: the
-    same with one dependent global read and write); then two row_copy and
+    cluster shape, as often as the entry launches); then two row_copy and
     two v3_loop launches in flight on two streams at once, 20 times, each
-    equal to its plain version; lane_vec's smem_dma by its on-chip bulk
-    copy and by a round trip through global memory; and the v3 loop's
-    device time per iteration (100 -> 400 iterations at L=8, R=1024,
-    NC=4, S = 256 and 1536) by bulk copy and by the warp's loads;
+    equal to its plain version; and the v3 loop's device time per
+    iteration (100 -> 400 iterations at L=8, R=1024, NC=4, S = 256 and
+    1536) by bulk copy and by the warp's loads;
  4a. warmup: `pomfret-tpu-torch warmup --engine cuda` on the 200-gap scale
     dataset of bench.py (generated once into .bench_data/ by the port's
     testing.py): one loop-kernel launch at max_iters=0 per packed shape;
@@ -493,12 +493,12 @@ def phase_probes(dev):
     plain version on the same inputs (exact; bit for bit for the ratio
     sums; K1's staged buffer too), the times of every entry as the entry
     point calls it beside its launch floor, the stile full-S/tiled-S times
-    by either quotient, K1 and K3 on two streams at once, K2's smem_dma by
-    either route and K3's time per iteration by either row copy."""
+    by either quotient, K1 and K3 on two streams at once, and K3's time
+    per iteration by either row copy."""
     import numpy as np
     import torch
     from pomfret_tpu_torch.kernels import probes as kp
-    from pomfret_tpu_torch.testing import (row_copy_two_streams, v3_inputs,
+    from pomfret_tpu_torch.testing import (row_copy_two_streams,
                                            v3_loop_two_streams)
     from pomfret_tpu_torch.tools import probes as tp
 
@@ -535,18 +535,14 @@ def phase_probes(dev):
         p.call(fn, t)
         n_launch = fn.launches - n0
 
-        touch = torch.zeros(2 * shape[0][0] * shape[0][1],
-                            dtype=torch.int32, device=dev)
-
-        def floor(touch=None):
+        def floor():
             for _ in range(n_launch):
-                kp.launch_floor(dev, *shape, touch=touch)
+                kp.launch_floor(dev, *shape)
         entries[f"{p.stem} {p.variant}"] = dict(
             kernel=p.kernel,
             ms=cuda_ms(lambda: p.call(fn, t), 5 if heavy else 50),
             device_ms=queued_ms(lambda: p.call(fn, t), 5 if heavy else 50),
             floor_ms=queued_ms(floor, 50),
-            touch_floor_ms=queued_ms(lambda: floor(touch), 50),
             launch_shape=shape,
             launches_per_call=n_launch,
             plain_ms=cuda_ms(lambda: p.call(plain_fn, t), 2 if heavy else 10),
@@ -600,25 +596,20 @@ def phase_probes(dev):
     bad = v3_loop_two_streams(dev, trials=20)
     check(not bad, f"v3_loop on two streams at once: trials {bad} differ "
           "from the plain version")
+    return dict(launches=launches, max_abs_err=max_err, entries=entries,
+                stile=stile, stile_us_per_iter_by_S=sweep,
+                v3_loop_us_per_iter=v3_slopes(dev), two_stream_trials=20)
 
-    # lane_vec's smem_dma by either route, at the registry's shape: the
-    # on-chip bulk copy in a one-block cluster (the wrapper's) and the
-    # round trip through global memory (the same bits), timed in turns
-    hp = tp.tensors(tp.PROBES[("probe_v3_parts", "smem_dma")].make(),
-                    dev)["hp"]
-    want = kp.lane_vec_plain(hp, "smem_dma")
-    dma = {"cluster": 0.0, "global": 0.0}
-    for route in ("cluster", "global", "global", "cluster"):  # in turns
-        cluster = route == "cluster"
-        check(torch.equal(kp.lane_vec_dma(hp, cluster=cluster), want),
-              f"lane_vec smem_dma by the {route} route != its plain version")
-        dma[route] += queued_ms(lambda: kp.lane_vec_dma(hp, cluster=cluster),
-                                50) * 1e3 / 2
 
-    # the v3 loop's time per iteration, the slope between 100 and 400
-    # iterations at (L=8, R=1024, NC=4), S = 256 and 1536, by bulk copy
-    # (the wrapper's) and by the warp's loads: the latency of the chain of
-    # pick, row copy, wait and sum; each equal to the plain version
+def v3_slopes(dev):
+    """The v3 loop's device us per iteration, the slope between 100 and 400
+    iterations at (L=8, R=1024, NC=4), S = 256 and 1536, by bulk copy (the
+    wrapper's) and by the warp's loads: the latency of the chain of pick,
+    row copy, wait and sum; each equal to the plain version."""
+    import torch
+    from pomfret_tpu_torch.kernels import probes as kp
+    from pomfret_tpu_torch.testing import v3_inputs
+    from pomfret_tpu_torch.tools import probes as tp
     slope = {}
     for S in (256, 1536):
         c = tp.tensors(v3_inputs(8, 1024, S, S), dev)
@@ -630,10 +621,36 @@ def phase_probes(dev):
             us = [queued_ms(lambda: fn(c["ids"], c["hp"], NC=4, n_iter=n),
                             10) * 1e3 for n in (100, 400)]
             slope[f"S={S} {route}"] = (us[1] - us[0]) / 300
-    return dict(launches=launches, max_abs_err=max_err, entries=entries,
-                stile=stile, stile_us_per_iter_by_S=sweep,
-                smem_dma_device_us=dma, v3_loop_us_per_iter=slope,
-                two_stream_trials=20)
+    return slope
+
+
+def v3_lanes(dev, order=(1, 2, 4, 8, 8, 4, 2, 1)):
+    """v3_loop at 1, 2, 4 and 8 lanes a block (the plan's V3_LOOP_WARPS
+    set for the run, in the given order, each reading the mean of its
+    turns): the registry entry's device us a launch, equal to its plain
+    version, and the chain's slopes as v3_slopes reads them."""
+    import torch
+    from pomfret_tpu_torch.kernels import probes as kp
+    from pomfret_tpu_torch.tools import probes as tp
+    p = tp.PROBES[PROBE_AT["probe_v3_loop"]]
+    t = tp.tensors(p.make(), dev)
+    want = p.call(kp.v3_loop_plain, t)
+    keep, got = kp.V3_LOOP_WARPS, {}
+    try:
+        for wpb in order:
+            kp.V3_LOOP_WARPS = wpb
+            kp.v3_loop_plan.cache_clear()
+            for a, b in zip(p.call(kp.v3_loop, t), want):
+                check(torch.equal(a, b), f"v3_loop at {wpb} lanes a block "
+                      "!= its plain version")
+            r = dict(registry_device_us=queued_ms(
+                lambda: p.call(kp.v3_loop, t), 50) * 1e3, **v3_slopes(dev))
+            got.setdefault(wpb, []).append(r)
+    finally:
+        kp.V3_LOOP_WARPS = keep
+        kp.v3_loop_plan.cache_clear()
+    return {w: {k: sum(r[k] for r in rs) / len(rs) for k in rs[0]}
+            for w, rs in got.items()}
 
 
 def phase_run_gap(scenarios):
@@ -1049,12 +1066,11 @@ def say_probes(pb, seconds, card):
     k1 = {k: e["device_ms"] * 1e3 for k, e in pb["entries"].items()
           if e["kernel"] == "probe_row_copy"}
     say("probes", "device us a launch / its launch floor (the empty "
-        "kernel at the entry's grid, block and cluster shape) / the floor "
-        "with one dependent global read and write, by kernel: "
+        "kernel at the entry's grid, block and cluster shape), by kernel: "
         + "; ".join(
             f"{name[6:]} " + ", ".join(
                 f"{k.split(' ', 1)[1]} {e['device_ms'] * 1e3:.2f}/"
-                f"{e['floor_ms'] * 1e3:.2f}/{e['touch_floor_ms'] * 1e3:.2f}"
+                f"{e['floor_ms'] * 1e3:.2f}"
                 for k, e in pb["entries"].items() if e["kernel"] == name)
             for name in PROBE_SITES) + f"; {card}")
     say("probes", f"row_copy: {len(k1)} entries, device "
@@ -1063,10 +1079,7 @@ def say_probes(pb, seconds, card):
         f"{k1[' '.join(PROBE_AT['probe_row_copy'])]:.2f}); two launches in "
         f"flight on two streams, {pb['two_stream_trials']} times: each "
         f"kept its own lane sums and total; {card}")
-    say("probes", "lane_vec smem_dma device us a launch: on-chip bulk copy "
-        f"(one-block cluster) {pb['smem_dma_device_us']['cluster']:.2f}, "
-        "round trip through global memory "
-        f"{pb['smem_dma_device_us']['global']:.2f}; v3_loop device us per "
+    say("probes", "v3_loop device us per "
         "iteration (slope 100 -> 400 iterations, L=8, R=1024, NC=4): "
         + ", ".join(f"{k} {v:.4f}"
                     for k, v in pb["v3_loop_us_per_iter"].items())
@@ -1218,6 +1231,15 @@ def main(argv=()):
         report["probes"] = pb = phase_probes(dev)
         say_probes(pb, time.perf_counter() - t0, card)
         write_report(report, "chip_smoke_probes.json")
+        return 0
+    if "--v3-lanes" in argv:  # v3_loop's lanes a block, no result line
+        report["v3_lanes"] = got = v3_lanes(dev)
+        for wpb, r in sorted(got.items()):
+            say("v3-lanes", f"{wpb} lanes a block: registry device "
+                f"{r['registry_device_us']:.3f} us, per iteration "
+                + ", ".join(f"{k} {v:.4f}" for k, v in r.items()
+                            if k != "registry_device_us") + f"; {card}")
+        write_report(report, "chip_smoke_v3_lanes.json")
         return 0
 
     kv = phase_kernel_vs_plain(dev)

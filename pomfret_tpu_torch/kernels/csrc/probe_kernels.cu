@@ -66,18 +66,6 @@ using namespace pomfret;
 
 constexpr int kTile = 256;  // probe_stile.py's TS
 
-// A bulk copy of `bytes` from shared memory to global memory, waited on
-// until its writes are done.
-__device__ __forceinline__ void bulk_store_s2g(void* dst, const void* src,
-                                               uint32_t bytes) {
-  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n"
-               ::"l"(dst),
-               "r"(smem_u32(src)), "r"(bytes)
-               : "memory");
-  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
-  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
-}
-
 __device__ __forceinline__ long long floor_div(long long a, long long b) {
   const long long q = a / b;
   return (a % b != 0 && (a < 0) != (b < 0)) ? q - 1 : q;
@@ -285,11 +273,10 @@ row_copy_kernel(const T* __restrict__ src, const int32_t* __restrict__ rows,
 // j of every warp reading element idx(j). whileloop loads its row once and
 // adds each lane's part n_iter times in registers. smem_dma's copy is the
 // counterpart of the TPU probe's VMEM -> SMEM DMA: a shared-to-shared
-// cp.async.bulk on an mbarrier in a one-block cluster launch (aux null),
-// or, for timing against it, a round trip through `aux` (L int32 in global
-// memory): a bulk store, its completion, and a bulk load (a
-// shared::cluster copy outside a cluster launch stops with an illegal
-// instruction).
+// cp.async.bulk on an mbarrier, which needs a cluster launch (of one block
+// here; outside one it stops with an illegal instruction): no byte leaves
+// the SM and no scratch is needed, in the time a round trip through global
+// memory takes.
 constexpr int kMaxVecLanes = 32;
 enum LaneVecMode { kStore2d, kSload, kSloadDyn, kSmemDma, kWhileLoop };
 // A lane's loads of a row, issued kVecLoads at a time: a loop over them
@@ -335,7 +322,6 @@ __device__ __forceinline__ void bulk_copy_s2s(void* dst, const void* src,
 }
 
 __global__ void lane_vec_kernel(const int32_t* __restrict__ hp,
-                                int32_t* __restrict__ aux,
                                 int32_t* __restrict__ out, int L, int Rh,
                                 int mode, int n_iter, int dyn) {
   __shared__ __align__(16) int32_t vec[kMaxVecLanes];
@@ -388,15 +374,9 @@ __global__ void lane_vec_kernel(const int32_t* __restrict__ hp,
   if (mode == kSmemDma) {
     fence_proxy_async();  // the lane vector's writes before the copy reads it
     __syncthreads();
-    if (threadIdx.x == 0) {
-      const uint32_t bytes = static_cast<uint32_t>(L * sizeof(int32_t));
-      if (aux == nullptr) {
-        bulk_copy_s2s(vec2, vec, bytes, &bar);
-      } else {
-        bulk_store_s2g(aux, vec, bytes);
-        bulk_copy_g2s(vec2, aux, bytes, &bar);
-      }
-    }
+    if (threadIdx.x == 0)
+      bulk_copy_s2s(vec2, vec, static_cast<uint32_t>(L * sizeof(int32_t)),
+                    &bar);
     mbar_wait(&bar, 0);
     from = vec2;
   } else {
@@ -816,30 +796,21 @@ __global__ void stile_ratio_kernel(const float* __restrict__ c0,
 
 // The launch floor: a kernel that does nothing. Launched at a probe's grid,
 // block and cluster shape, its device time is what a launch of that shape
-// costs before any work, the floor under that probe's time. touch_kernel
-// adds the least a kernel that reads its input does: thread 0 of each
-// block loads one int32 and stores it (a dependent global read and
-// write).
+// costs before any work, the floor under that probe's time.
 __global__ void empty_kernel() {}
-
-__global__ void touch_kernel(const int32_t* __restrict__ src,
-                             int32_t* __restrict__ dst) {
-  const size_t b = static_cast<size_t>(blockIdx.y) * gridDim.x + blockIdx.x;
-  if (threadIdx.x == 0) dst[b] = src[b];
-}
 
 template <typename T>
 int launch_row_copy(const void* src, const void* rows, const void* slots,
                     void* buf, void* lane_sum, void* total, int L, int R,
                     int S, int W, int NB, int sum_stage, int chunks,
-                    int chunk_bytes, cudaStream_t st) {
+                    int chunk_bytes, int threads, cudaStream_t st) {
   static std::atomic<unsigned long long> optin{0}, wide{0};
   int rc = allow_optin(row_copy_kernel<T>, optin);
   if (rc == 0 && L > 8) rc = allow_wide_clusters(row_copy_kernel<T>, wide);
   if (rc != 0) return rc;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(L);
-  cfg.blockDim = dim3(kThreads);
+  cfg.blockDim = dim3(threads);
   cfg.dynamicSmemBytes = kRowCopyHead + static_cast<size_t>(W) * S * sizeof(T);
   cfg.stream = st;
   cudaLaunchAttribute attr[1];
@@ -880,9 +851,13 @@ int launch_stile(const void* cnt, const void* cids, const void* ranges,
 
 // Each launcher launches on `stream` and returns cudaGetLastError() (0 on
 // success); the wrappers check shapes, alignment and the shared-memory size.
-// row_copy: 1 <= L <= 16 lanes (one cluster); the copy in `chunks` (1 to
-// kCopyChunks) pieces of chunk_bytes (a multiple of 16) covering W*S
-// elements (kernels/probes.py row_copy_plan).
+// row_copy and lane_vec launch at the threads a block and cluster size
+// that their wrappers pass (kernels/probes.py row_copy_shape,
+// lane_vec_shape, which the launch floor is timed at too), and refuse any
+// shape their kernel is not written for.
+// row_copy: 1 <= L <= 16 lanes (one cluster of L blocks of kThreads); the
+// copy in `chunks` (1 to kCopyChunks) pieces of chunk_bytes (a multiple of
+// 16) covering W*S elements (kernels/probes.py row_copy_plan).
 extern "C" int pomfret_probe_row_copy_launch(int elt_bytes, const void* src,
                                              const void* rows,
                                              const void* slots, void* buf,
@@ -890,9 +865,11 @@ extern "C" int pomfret_probe_row_copy_launch(int elt_bytes, const void* src,
                                              int L, int R, int S, int W,
                                              int NB, int sum_stage,
                                              int chunks, int chunk_bytes,
+                                             int threads, int cluster,
                                              void* stream) {
   const long long bytes = static_cast<long long>(W) * S * elt_bytes;
-  if (L < 1 || L > kMaxClusterLanes || chunks < 1 || chunks > kCopyChunks ||
+  if (L < 1 || L > kMaxClusterLanes || threads != kThreads || cluster != L ||
+      chunks < 1 || chunks > kCopyChunks ||
       chunk_bytes <= 0 || chunk_bytes % 16 ||
       static_cast<long long>(chunks) * chunk_bytes < bytes ||
       static_cast<long long>(chunks - 1) * chunk_bytes >= bytes)
@@ -901,26 +878,27 @@ extern "C" int pomfret_probe_row_copy_launch(int elt_bytes, const void* src,
   if (elt_bytes == 1)
     return launch_row_copy<int8_t>(src, rows, slots, buf, lane_sum, total, L,
                                    R, S, W, NB, sum_stage, chunks,
-                                   chunk_bytes, st);
+                                   chunk_bytes, threads, st);
   if (elt_bytes == 4)
     return launch_row_copy<int32_t>(src, rows, slots, buf, lane_sum, total, L,
                                     R, S, W, NB, sum_stage, chunks,
-                                    chunk_bytes, st);
+                                    chunk_bytes, threads, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// lane_vec: aux null takes smem_dma's on-chip copy (a one-block cluster
-// launch), else its round trip through aux; smem_dma needs L % 4 == 0.
-extern "C" int pomfret_probe_lane_vec_launch(const void* hp, void* aux,
-                                             void* out, int L, int Rh,
-                                             int mode, int n_iter, int dyn,
-                                             void* stream) {
+// lane_vec: one block of a warp a lane (threads 32 L), a cluster of one
+// block (cluster 1) or none (0); smem_dma needs the cluster and L % 4 == 0.
+extern "C" int pomfret_probe_lane_vec_launch(const void* hp, void* out,
+                                             int L, int Rh, int mode,
+                                             int n_iter, int dyn, int threads,
+                                             int cluster, void* stream) {
   if (L <= 0 || L > kMaxVecLanes || mode < kStore2d || mode > kWhileLoop ||
-      (mode == kSmemDma && L % 4))
+      threads != 32 * L || cluster < 0 || cluster > 1 ||
+      (mode == kSmemDma && (L % 4 || cluster != 1)))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(1);
-  cfg.blockDim = dim3(32 * L);
+  cfg.blockDim = dim3(threads);
   cfg.stream = static_cast<cudaStream_t>(stream);
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
@@ -928,11 +906,10 @@ extern "C" int pomfret_probe_lane_vec_launch(const void* hp, void* aux,
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
-  cfg.numAttrs = mode == kSmemDma && aux == nullptr ? 1 : 0;
+  cfg.numAttrs = cluster;
   const cudaError_t e = cudaLaunchKernelEx(
       &cfg, lane_vec_kernel, static_cast<const int32_t*>(hp),
-      static_cast<int32_t*>(aux), static_cast<int32_t*>(out), L, Rh, mode,
-      n_iter, dyn);
+      static_cast<int32_t*>(out), L, Rh, mode, n_iter, dyn);
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }
@@ -974,18 +951,15 @@ extern "C" int pomfret_probe_v3_loop_launch(const void* ids, const void* hp,
 
 // The empty kernel on a (grid_x, grid_y) grid of `block` threads, in
 // clusters of `cluster` blocks along x (0: a launch without clusters; up
-// to kMaxClusterLanes, dividing grid_x); with src and dst (grid_x * grid_y
-// int32 each), touch_kernel instead.
-extern "C" int pomfret_probe_empty_launch(const void* src, void* dst,
-                                          int grid_x, int grid_y, int block,
+// to kMaxClusterLanes, dividing grid_x).
+extern "C" int pomfret_probe_empty_launch(int grid_x, int grid_y, int block,
                                           int cluster, void* stream) {
   if (grid_x < 1 || grid_y < 1 || block < 1 || cluster < 0 ||
       cluster > kMaxClusterLanes || (cluster > 0 && grid_x % cluster))
     return static_cast<int>(cudaErrorInvalidValue);
-  static std::atomic<unsigned long long> wide{0}, wide_touch{0};
+  static std::atomic<unsigned long long> wide{0};
   if (cluster > 8) {
-    const int rc = src ? allow_wide_clusters(touch_kernel, wide_touch)
-                       : allow_wide_clusters(empty_kernel, wide);
+    const int rc = allow_wide_clusters(empty_kernel, wide);
     if (rc != 0) return rc;
   }
   cudaLaunchConfig_t cfg = {};
@@ -999,11 +973,7 @@ extern "C" int pomfret_probe_empty_launch(const void* src, void* dst,
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = cluster > 0 ? 1 : 0;
-  const cudaError_t e =
-      src ? cudaLaunchKernelEx(&cfg, touch_kernel,
-                               static_cast<const int32_t*>(src),
-                               static_cast<int32_t*>(dst))
-          : cudaLaunchKernelEx(&cfg, empty_kernel);
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, empty_kernel);
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }

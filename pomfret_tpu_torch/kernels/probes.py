@@ -37,6 +37,7 @@ TILE = 256                       # probe_stile.py's TS
 MAX_SHARED_BYTES = 232_448       # one block's shared memory on an H100
 MAX_VEC_LANES = 32               # lane_vec: one warp per lane, one block
 MAX_CLUSTER_LANES = 16           # row_copy: the lanes are one block cluster
+ROW_COPY_THREADS = 256           # row_copy: the threads of a lane's block
 COPY_CHUNKS = 4                  # row_copy: a lane's copy in up to 4 pieces,
 MIN_CHUNK_BYTES = 4096           # each on its own mbarrier, of >= 4 KB
 STILE_WARPS = 4                  # stile: the k's (warps) of a block
@@ -96,6 +97,13 @@ def row_copy_plan(W: int, S: int, elt: int):
     return 256 + nbytes, -(-nbytes // size), size
 
 
+def row_copy_shape(L: int):
+    """(grid (x, y), threads a block, cluster size) of row_copy's launch for
+    L lanes: a block of ROW_COPY_THREADS a lane, the L blocks one cluster.
+    The wrapper passes it to the launcher, which refuses any other."""
+    return (L, 1), ROW_COPY_THREADS, L
+
+
 def row_copy(src, rows, slots, *, W: int, NB: int, sum_stage: bool = False,
              keep_buf: bool = False):
     """K1 (see row_copy_plain for what it returns). CUDA tensors: one block
@@ -133,11 +141,12 @@ def row_copy(src, rows, slots, *, W: int, NB: int, sum_stage: bool = False,
            if keep_buf else None)
     lane_sum = torch.empty(L, dtype=torch.int32, device=dev)
     total = torch.empty(1, dtype=torch.int32, device=dev)
+    _, threads, cluster = row_copy_shape(L)
     _launch(dev, "pomfret_probe_row_copy_launch", elt, src.data_ptr(),
             rows.data_ptr(), slots.data_ptr(),
             None if buf is None else buf.data_ptr(), lane_sum.data_ptr(),
             total.data_ptr(), L, R, S, W, NB, int(bool(sum_stage)), chunks,
-            chunk)
+            chunk, threads, cluster)
     row_copy.launches += 1
     return lane_sum, total, buf
 
@@ -171,24 +180,20 @@ def lane_vec_plain(hp, mode: str, *, n_iter: int = 0, dyn: int = 0):
     return v.sum(dtype=torch.int32).expand(L).clone()
 
 
+def lane_vec_shape(L: int, mode: str):
+    """(grid (x, y), threads a block, cluster size) of lane_vec's launch:
+    one block of a warp a lane, a one-block cluster for smem_dma (its
+    shared-to-shared bulk copy needs a cluster launch), else no cluster.
+    The wrapper passes it to the launcher, which refuses any other."""
+    return (1, 1), 32 * L, int(mode == "smem_dma")
+
+
 def lane_vec(hp, mode: str, *, n_iter: int = 0, dyn: int = 0):
     """K2: one block, one warp per lane; a block barrier only where warps
     exchange values (sload, sload_dyn, smem_dma), each lane vector summed in
     one warp reduction. CUDA: the kernel (smem_dma moves the lane vector by
     a shared-to-shared bulk copy in a one-block cluster launch, so L must be
     a multiple of 4); CPU: the plain version."""
-    return _lane_vec(hp, mode, n_iter, dyn, cluster=True)
-
-
-def lane_vec_dma(hp, *, cluster: bool):
-    """lane_vec's smem_dma, its bulk copy on chip in a one-block cluster
-    (cluster, the wrapper's) or as a round trip through a global scratch
-    of L int32: the same bits either way, so that the two routes can be
-    timed against each other."""
-    return _lane_vec(hp, "smem_dma", 0, 0, cluster=cluster)
-
-
-def _lane_vec(hp, mode, n_iter, dyn, *, cluster):
     dev = _device_of("lane_vec", hp)
     if mode not in LANE_VEC_MODES:
         raise ValueError(f"unknown lane_vec mode {mode!r}")
@@ -201,12 +206,11 @@ def _lane_vec(hp, mode, n_iter, dyn, *, cluster):
                          "multiple of 4 for smem_dma)")
     if Rh < 1:
         raise ValueError("lane_vec: no values in a lane's row")
-    aux = (torch.empty(L, dtype=torch.int32, device=dev)
-           if mode == "smem_dma" and not cluster else None)
     out = torch.empty(L, dtype=torch.int32, device=dev)
+    _, threads, cluster = lane_vec_shape(L, mode)
     _launch(dev, "pomfret_probe_lane_vec_launch", hp.data_ptr(),
-            None if aux is None else aux.data_ptr(), out.data_ptr(), L, Rh,
-            LANE_VEC_MODES.index(mode), n_iter, dyn)
+            out.data_ptr(), L, Rh, LANE_VEC_MODES.index(mode), n_iter, dyn,
+            threads, cluster)
     lane_vec.launches += 1
     return out
 
@@ -418,27 +422,18 @@ stile_ratios.launches = 0
 # The launch floor
 # ---------------------------------------------------------------------------
 
-def launch_floor(device, grid, block: int, cluster: int = 0, *,
-                 touch=None):
+def launch_floor(device, grid, block: int, cluster: int = 0):
     """Launch the empty kernel on `device` (CUDA only) at a probe's launch
     shape: a grid of (x, y) blocks of `block` threads, in clusters of
     `cluster` blocks along x (0: no cluster launch). Its device time is
-    what a launch of that shape costs before any work. With `touch`, an
-    int32 CUDA tensor of 2 x y elements, thread 0 of block b loads
-    touch[b] and stores it into touch[x y + b] instead: the least a kernel
-    that reads its input and writes its output costs."""
+    what a launch of that shape costs before any work."""
     dev = torch.device(device)
     if dev.type != "cuda":
         raise ValueError(f"launch_floor: {dev} is not a CUDA device")
     if dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
-    src = dst = None
-    if touch is not None:
-        n = grid[0] * grid[1]
-        _check("touch", touch, (torch.int32,), (2 * n,), dev)
-        src, dst = touch.data_ptr(), touch[n:].data_ptr()
-    _launch(dev, "pomfret_probe_empty_launch", src, dst, grid[0], grid[1],
-            block, cluster)
+    _launch(dev, "pomfret_probe_empty_launch", grid[0], grid[1], block,
+            cluster)
     launch_floor.launches += 1
 
 

@@ -334,14 +334,13 @@ def compared(p: Probe):
 
 def launch_shape(p: Probe, inputs):
     """(grid (x, y), threads a block, cluster size or 0) of one launch of
-    p's kernel on these inputs, as its launcher launches it: the shape at
-    which kernels/probes.launch_floor measures its launch floor."""
+    p's kernel on these inputs, from the plans its wrapper launches it
+    at: the shape at which kernels/probes.launch_floor measures its launch
+    floor."""
     if p.kernel == "probe_row_copy":
-        L = inputs["src"].shape[0]
-        return (L, 1), 256, L
-    if p.kernel == "probe_lane_vec":  # smem_dma: a one-block cluster
-        return (1, 1), 32 * inputs["hp"].shape[0], int(
-            p.kw["mode"] == "smem_dma")
+        return kp.row_copy_shape(inputs["src"].shape[0])
+    if p.kernel == "probe_lane_vec":
+        return kp.lane_vec_shape(inputs["hp"].shape[0], p.kw["mode"])
     if p.kernel == "probe_v3_loop":
         L, R, S = inputs["ids"].shape
         wpb = kp.v3_loop_plan(L, R, p.kw["NC"], S)[0]

@@ -490,8 +490,7 @@ def _lane_vec_rows(L, Rh, seed):
 def test_probe_lane_vec_modes(cuda, mode):
     """Every mode at L in {1, 4, 8, 17, 32} and Rh in {1, 64, 1000}, with
     n_iter in {0, 1, 5, 1000} (whileloop) and dyn in 0..2L (sload_dyn);
-    smem_dma by both routes where L is a multiple of 4, refused
-    elsewhere."""
+    smem_dma where L is a multiple of 4, refused elsewhere."""
     for L in (1, 4, 8, 17, 32):
         for Rh in (1, 64, 1000):
             hp = _lane_vec_rows(L, Rh, 100 * L + Rh)
@@ -501,10 +500,6 @@ def test_probe_lane_vec_modes(cuda, mode):
                     with pytest.raises(ValueError, match="multiple of 4"):
                         kp.lane_vec(h, mode)
                     continue
-                want = kp.lane_vec_plain(hp, mode)
-                for cluster in (True, False):
-                    got = kp.lane_vec_dma(h, cluster=cluster)
-                    assert torch.equal(got.cpu(), want), (L, Rh, cluster)
             kw = ([dict(n_iter=n) for n in (0, 1, 5, 1000)]
                   if mode == "whileloop" else
                   [dict(dyn=d) for d in range(2 * L + 1)]
@@ -557,19 +552,40 @@ def test_probe_v3_loop_refuses_what_it_cannot_take(cuda):
 
 def test_probe_launch_floor_shapes(cuda):
     """The empty kernel launches at the launch shape of every registry
-    entry (phase 3b's floors), and so does the one that copies an int32 a
-    block; each launch counts; a cluster that does not divide the grid is
-    refused."""
+    entry (phase 3b's floors); each launch counts; a cluster that does not
+    divide the grid is refused."""
     n0 = kp.launch_floor.launches
     shapes = {tpr.launch_shape(p, p.make()) for p in tpr.PROBES.values()}
     for shape in shapes:
         kp.launch_floor(cuda, *shape)
-        n = shape[0][0] * shape[0][1]
-        touch = torch.arange(2 * n, dtype=torch.int32, device=cuda) - n
-        kp.launch_floor(cuda, *shape, touch=touch)
-        torch.cuda.synchronize()
-        assert torch.equal(touch[n:], touch[:n]), shape
-    assert kp.launch_floor.launches == n0 + 2 * len(shapes)
+    torch.cuda.synchronize()
+    assert kp.launch_floor.launches == n0 + len(shapes)
     assert {s[2] for s in shapes} == {0, 1, 8}
     with pytest.raises(RuntimeError, match="pomfret_probe_empty_launch"):
         kp.launch_floor(cuda, (3, 1), 32, 2)
+
+
+def test_probe_launchers_refuse_other_shapes(cuda):
+    """row_copy's and lane_vec's launchers take their launch shape from the
+    wrapper (row_copy_shape, lane_vec_shape: the shapes the floors are
+    timed at) and refuse any other, so the two cannot drift apart."""
+    from pomfret_tpu_torch.kernels.engine_fused import _launch
+    src = torch.zeros(2, 4, 16, dtype=torch.int8, device=cuda)
+    idx = torch.zeros(2, dtype=torch.int32, device=cuda)
+    sums = torch.empty(3, dtype=torch.int32, device=cuda)
+    _, chunks, chunk = kp.row_copy_plan(1, 16, 1)
+    _, threads, cluster = kp.row_copy_shape(2)
+    for bad in ((threads // 2, cluster), (threads, cluster - 1)):
+        with pytest.raises(RuntimeError, match="row_copy"):
+            _launch(cuda, "pomfret_probe_row_copy_launch", 1, src.data_ptr(),
+                    idx.data_ptr(), idx.data_ptr(), None, sums.data_ptr(),
+                    sums[2:].data_ptr(), 2, 4, 16, 1, 0, 1, chunks, chunk,
+                    *bad)
+    hp = torch.zeros(4, 8, dtype=torch.int32, device=cuda)
+    mode = kp.LANE_VEC_MODES.index("smem_dma")
+    _, threads, cluster = kp.lane_vec_shape(4, "smem_dma")
+    for bad in ((threads - 32, cluster), (threads, 0)):
+        with pytest.raises(RuntimeError, match="lane_vec"):
+            _launch(cuda, "pomfret_probe_lane_vec_launch", hp.data_ptr(),
+                    sums.data_ptr(), 4, 8, mode, 0, 0, *bad)
+    torch.cuda.synchronize()

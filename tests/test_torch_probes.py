@@ -388,8 +388,7 @@ def test_lane_vec_plain_wraps_as_int32():
     for mode, dyn in (("sload", 0), ("smem_dma", 0), ("sload_dyn", 11)):
         got = kp.lane_vec_plain(t, mode, dyn=dyn)
         assert np.array_equal(got.numpy(), want), mode
-    assert torch.equal(kp.lane_vec_dma(t, cluster=False), torch.from_numpy(
-        want))
+    assert torch.equal(kp.lane_vec(t, "smem_dma"), torch.from_numpy(want))
 
 
 @pytest.mark.parametrize("L,R,NC,S", [(8, 64, 4, 256), (8, 1024, 4, 1536),
@@ -410,3 +409,39 @@ def test_v3_loop_plan(L, R, NC, S):
     assert shm <= cap or wpb == 1
     assert wpb == min(kp.V3_LOOP_WARPS, L) or size(wpb + 1) > cap
     assert kp.v3_loop_plan(8, 64, 4, 256) == (4, 16512)
+
+
+@pytest.mark.parametrize("kernel", sorted(kp.PROBE_KERNELS))
+def test_launch_shape(kernel):
+    """Every registry entry's launch shape (the floor's): whole warps, at
+    most 1024 threads a block; blocks that cover the entry's lanes
+    (row_copy, lane_vec: one block a lane or one for all; v3_loop: the
+    plan's lanes a block; stile: its k's a block, a row of blocks per b);
+    a cluster only where the kernel needs one (row_copy's lanes,
+    lane_vec's smem_dma), dividing the grid."""
+    entries = [p for p in tp.PROBES.values() if p.kernel == kernel]
+    assert entries
+    for p in entries:
+        inputs = p.make()
+        (gx, gy), threads, cluster = tp.launch_shape(p, inputs)
+        assert threads % 32 == 0 and 32 <= threads <= 1024, p.variant
+        if kernel == "probe_row_copy":
+            L = inputs["src"].shape[0]
+            assert ((gx, gy), threads, cluster) == (
+                (L, 1), kp.ROW_COPY_THREADS, L)
+        elif kernel == "probe_lane_vec":
+            L = inputs["hp"].shape[0]
+            assert ((gx, gy), threads) == ((1, 1), 32 * L)
+            assert cluster == (p.kw["mode"] == "smem_dma"), p.variant
+        elif kernel == "probe_v3_loop":
+            L, R, S = inputs["ids"].shape
+            wpb = threads // 32
+            assert (wpb, gy, cluster) == (
+                kp.v3_loop_plan(L, R, p.kw["NC"], S)[0], 1, 0)
+            assert (gx - 1) * wpb < L <= gx * wpb
+        else:
+            B, NC = inputs["cids"].shape[:2]
+            kpb = threads // 32
+            assert (gy, cluster) == (B, 0) and kpb <= kp.STILE_WARPS
+            assert (gx - 1) * kpb < NC <= gx * kpb
+        assert cluster == 0 or gx % cluster == 0
