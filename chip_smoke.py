@@ -10,6 +10,8 @@
                                            # (C) in turns P C C P P C C P
     python3 chip_smoke.py --v3-lanes       # card, build and v3_loop at 1,
                                            # 2, 4 and 8 lanes a block
+    python3 chip_smoke.py --only-dense     # card, build and phase 10 only
+                                           # (no result line)
 
 Phases, each printing one line:
  1. card: the GPU's name and power limit (nvidia-smi);
@@ -111,6 +113,23 @@ Phases, each printing one line:
     run_jobs_batched call over the scale dataset run again with the mesh
     (decisions and tag maps equal; counted from zero); with several GPUs,
     production_mesh too; prints the times.
+ 10. dense: the dense ~220x chromosome of 36 blocks at noise 0.05
+    (testing.dense_params, the first row of the JAX record's
+    noise_ramp_dense; made in a child process while phases 3-9 run, its
+    making time printed apart): `report --chunk-size 50000 --chunk-stride
+    15000` and then `methphase`, each --engine cuda against --engine torch
+    --device cuda, .report.tsv and .mp.vcf/.mp.gtf byte-identical; no
+    switch, methphase cis or fail only; the correct/switch/fail counts
+    beside the JAX record's (printed, not checked); one more warm
+    methphase under torch.profiler (device busy time, idle share); fails
+    unless a batch
+    of R 1792, S 1536, D >= 32 and nc_cap 64 was packed and the loop
+    kernel ran at that shape with its count table in global memory; each
+    run's wall, stage seconds, window reads, packed shapes, loop-kernel
+    lanes by placement and row route, peak RSS and launches, counted from
+    zero; run_gap cuda == the host oracle on the first dense gap (the
+    oracle's wall); the loop kernel alone on one dense batch (gaps 0, 1,
+    17, 34), == loop_plain, its device time, iterations and loop_bound.
 The script then checks that no jax, pomfret_tpu or pomfret_tpu.* module
 was loaded. Then a JSON line of the kernels (with each one's bound: the
 larger of its bytes over the HBM rate and its operations over the f32
@@ -120,7 +139,6 @@ Any failure raises: the exit code is non-zero and the last line is absent.
 Longer output (per-phase stage seconds) goes to chiprun_out/chip_smoke.json.
 """
 import concurrent.futures
-import hashlib
 import json
 import os
 import shutil
@@ -130,16 +148,6 @@ import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-SCALE_PARAMS = dict(  # bench.py build_scale_dataset at BENCH_SCALE=1
-    n_blocks=51, block_len=60_000, gap_len=30_000,
-    per_chrom=[
-        {"read_stagger": 700, "cpg_every": 100, "read_len": 20_000},
-        {"read_stagger": 1000, "cpg_every": 120, "read_len": 20_000,
-         "noise": 0.02, "nocall": 0.02},
-        {"read_stagger": 1400, "cpg_every": 160, "read_len": 20_000},
-        {"read_stagger": 2000, "cpg_every": 200, "read_len": 20_000,
-         "noise": 0.03, "nocall": 0.03},
-    ])
 
 
 def check(ok, msg):
@@ -653,12 +661,15 @@ def v3_lanes(dev, order=(1, 2, 4, 8, 8, 4, 2, 1)):
             for w, rs in got.items()}
 
 
-def phase_run_gap(scenarios):
+def phase_run_gap(scenarios, runs=("host", "torch_cpu", "cuda"),
+                  first_gap=False):
     """run_gap(engine="cuda") against run_gap(engine="torch") on the CPU
-    and the host oracle, gap by gap over the parity scenarios: every gap
-    with one seed; the first gap of each chromosome with 5 permutations
-    (per-gap srand48 streams). Decisions and per-read tags equal; returns
-    the counts, the directions the cuda runs dispatched and the walls."""
+    and the host oracle (`runs`, any of them), gap by gap over the
+    scenarios: every gap with one seed; the first gap of each chromosome
+    with 5 permutations (per-gap srand48 streams); with first_gap, the
+    first scenario's first gap alone, one seed. Decisions and per-read tags
+    equal; returns the counts, the directions the cuda runs dispatched and
+    the walls."""
     from pomfret_tpu_torch.core.engine_host import Drand48, haplotag_region
     from pomfret_tpu_torch.core.intervals import (Storage,
                                                   merge_close_intervals,
@@ -673,20 +684,22 @@ def phase_run_gap(scenarios):
     from pomfret_tpu_torch.pipeline import (_derive_chrom_params,
                                             estimate_read_coverage_cached)
 
-    walls = {"host": 0.0, "torch_cpu": 0.0, "cuda": 0.0}
-    runs = joined = cuda_directions = 0
-    for bam_path, vcf in scenarios:
+    walls = dict.fromkeys(runs, 0.0)
+    n_runs = joined = cuda_directions = 0
+    last = 1 if first_gap else None
+    for bam_path, vcf in scenarios[:last]:
         st = Storage()
         load_intervals_from_file(vcf, IS_VCF, st)
         cov = estimate_read_coverage_cached(bam_path, 2)
         bam = BamReader(bam_path)
-        for j, (rg, ref) in enumerate(zip(st.ranges, st.ref_names)):
+        for j, (rg, ref) in enumerate(list(zip(st.ranges,
+                                               st.ref_names))[:last]):
             store_raw_intervals(rg)
             merge_close_intervals(rg, READBACK)
             cfg, n_cand = _derive_chrom_params(MmrConfig(), 14,
                                                cov.get(ref, 0), ref)
-            for i in range(len(rg.starts)):
-                for n_perm in ((1, 5) if i == 0 else (1,)):
+            for i in range(len(rg.starts))[:last]:
+                for n_perm in ((1, 5) if i == 0 and not first_gap else (1,)):
                     got = {}
                     for run in walls:
                         rs = load_reads_given_interval(
@@ -712,14 +725,14 @@ def phase_run_gap(scenarios):
                                 cuda_directions += run_gap.dispatched - d0
                         walls[run] += time.perf_counter() - t0
                         got[run] = (dec, [r.hp for r in rs.reads])
-                    check(got["cuda"] == got["torch_cpu"] == got["host"],
+                    check(all(v == got["cuda"] for v in got.values()),
                           f"run_gap {ref}:{rg.starts[i]}-{rg.ends[i]} "
                           f"n_permutations={n_perm}: decisions "
                           f"{ {k: v[0] for k, v in got.items()} } or tags "
                           "differ")
-                    runs += 1
+                    n_runs += 1
                     joined += got["cuda"][0] >= 0
-    return dict(gap_runs=runs, joined=joined,
+    return dict(gap_runs=n_runs, joined=joined,
                 cuda_directions=cuda_directions, walls_s=walls)
 
 
@@ -966,22 +979,225 @@ def phase_mesh(dev, base, p_c):
     return out
 
 
+# phase 10: the dense chromosome at the first noise level of the JAX
+# record's noise_ramp_dense, and the gaps whose windows pack_group makes one
+# (32, 1792, 1536) runs batch of, D 32, nc_cap 64
+DENSE_NOISE = 0.05
+DENSE_GAPS = (0, 1, 17, 34)
+
+
+def is_dense(s):
+    """A packed or launched shape of the dense windows' buckets."""
+    return (s["R"], s["S"], s["nc_cap"]) == (1792, 1536, 64) and s["D"] >= 32
+
+
+def dense_run(dev, cmd, args):
+    """One CLI run counted from zero (tools.accuracy_scale.counted): its
+    wall, stage seconds, window reads, packed shapes, loop-kernel lanes
+    and shapes, peak RSS, and each kernel's launches."""
+    from pomfret_tpu_torch.tools.accuracy_scale import counted
+    zero_counts()
+    rc, wall, row = counted(lambda: cli_main([cmd, *args]), dev)
+    check(rc == 0, f"{cmd} {' '.join(args)} exited {rc}")
+    return dict(row, wall_s=wall, kernel_launches=read_counts())
+
+
+def dense_batch(bam_path, vcf, dev):
+    """The dense chromosome's DENSE_GAPS packed as methphase packs them
+    (coverage-derived parameters): the loop's tensors on `dev` (ids
+    densified), D and nc_cap, and the part's layout."""
+    import torch
+    from pomfret_tpu_torch.core.methmer import get_methmer_sites_and_ranges
+    from pomfret_tpu_torch.core.readset import (READBACK,
+                                                load_reads_given_interval)
+    from pomfret_tpu_torch.kernels.engine_torch import pack_group
+    from pomfret_tpu_torch.parallel.batch import (_LOOP_KEYS, densify_runs,
+                                                  upload_gap_batch)
+    from pomfret_tpu_torch.tools.accuracy_scale import (load_gap_storage,
+                                                        gap_jobs)
+    bam, st = load_gap_storage(bam_path, vcf)
+    job = gap_jobs(bam_path, st)[0]
+    rg, cfg = job["rg"], job["cfg"]
+    loaded = []
+    for i in DENSE_GAPS:
+        rs = load_reads_given_interval(bam, job["ref_name"], rg.starts[i],
+                                       rg.ends[i], READBACK, cfg)
+        loaded.append((i, rs, get_methmer_sites_and_ranges(rs, cfg, 0),
+                       get_methmer_sites_and_ranges(rs, cfg, 1)))
+    _, parts, _ = pack_group(loaded, cfg, job["n_cand"])
+    check(len(parts) == 1, f"the dense gaps packed {len(parts)} batches")
+    batch = parts[0][1]
+    t = upload_gap_batch(batch, device=dev)
+    ids = t["ids"] if "ids" in t else densify_runs(
+        t["blk"], t["b0"], batch.S,
+        torch.int8 if batch.D <= 127 else torch.int32)
+    return ([ids] + [t[k] for k in _LOOP_KEYS], batch.D, batch.nc_cap,
+            "dense" if batch.blk is None else "runs")
+
+
+def phase_dense(dev, made, work):
+    """Phase 10 on the dense chromosome (`made`: bam, vcf, gaps, making
+    seconds): report, then methphase, --engine cuda against --engine torch
+    on the card, byte for byte; no switch, methphase cis or fail only; a
+    batch of the dense buckets packed and run by the loop kernel with its
+    count table in global memory; run_gap cuda == the host oracle on the
+    first gap; the loop kernel alone on DENSE_GAPS' batch, == loop_plain,
+    with its device time, iterations and bound; a warm methphase under
+    torch.profiler."""
+    import torch
+    from pomfret_tpu_torch.kernels import engine_fused3 as f3
+    from pomfret_tpu_torch.tools.accuracy_scale import report_counts
+
+    bam, vcf, n_gaps, made_s = made
+    d = os.path.join(work, "dense")
+    os.makedirs(d)
+    runs = {}
+    for cmd, args, exts in (
+            ("report", ["--chunk-size", "50000", "--chunk-stride", "15000"],
+             (".report.tsv",)),
+            ("methphase", [], (".mp.vcf", ".mp.gtf"))):
+        for eng in (["cuda"], ["torch", "--device", "cuda"]):
+            runs[f"{cmd}_{eng[0]}"] = dense_run(dev, cmd, [
+                "-o", os.path.join(d, f"{cmd}_{eng[0]}"), "--engine", *eng,
+                *args, "--vcf", vcf, bam])
+        same_outputs(os.path.join(d, f"{cmd}_cuda"),
+                     os.path.join(d, f"{cmd}_torch"), exts)
+    counts, _ = report_counts(os.path.join(d, "report_cuda.report.tsv"))
+    check(counts["switch"] == 0, f"dense report: {counts}")
+    dec = decisions(os.path.join(d, "methphase_cuda"))
+    check(set(dec) <= {0, -1} and 0 in dec,
+          f"dense methphase decisions on an all-cis set: {dec}")
+    cuda = [runs["report_cuda"], runs["methphase_cuda"]]
+    packed = [s for r in cuda for s in r["packed_shapes"] if is_dense(s)]
+    launched = [s for r in cuda for s in r["loop_kernel"]["shapes"]
+                if is_dense(s) and "table" not in s["shared"]]
+    check(packed and launched, "no batch of the dense buckets (R 1792, S "
+          "1536, D >= 32, nc_cap 64) was packed and run with the count "
+          "table in global memory: packed " + str(
+              [r["packed_shapes"] for r in cuda]) + ", launched " + str(
+              [r["loop_kernel"]["shapes"] for r in cuda]))
+    prof = phase_profile(["--vcf", vcf, bam])
+    check(prof["launches"] > 0, "the profiled dense run launched no loop "
+          "kernel")
+    rg = phase_run_gap(((bam, vcf),), runs=("host", "cuda"), first_gap=True)
+
+    t, D, nc_cap, layout = dense_batch(bam, vcf, dev)
+    kw = dict(D=D, nc_cap=nc_cap)
+    hk, sk = f3.run_batch_fused3(*t, **kw)
+    need = {}  # what these inputs need of the kernel, for its bound
+    hpl, spl = f3.loop_plain(*t, **kw, work=need)
+    check(torch.equal(hk, hpl) and torch.equal(sk, spl),
+          "loop kernel != loop_plain on the dense batch")
+    G, R, S = t[0].shape
+    kernel = dict(G=G, R=R, S=S, D=D, nc_cap=nc_cap, layout=layout,
+                  shape=f3.run_batch_fused3.shapes[(G, R, S, D, nc_cap)],
+                  iters=int(sk[:, 0].max()),
+                  lane_iterations=int(sk[:, 0].long().sum()),
+                  ms=cuda_ms(lambda: f3.run_batch_fused3(*t, **kw), 3),
+                  device_ms=loop_kernel_device_ms(t, kw, 3),
+                  plain_ms=cuda_ms(lambda: f3.loop_plain(*t, **kw), 1),
+                  **loop_bound(t, need, sk, D))
+    return dict(dataset_s=made_s, gaps=n_gaps, runs=runs,
+                report_counts=counts,
+                methphase_decisions={k: dec.count(k) for k in (0, 1, -1)},
+                profile=prof, run_gap=rg, kernel=kernel)
+
+
+def say_dense(dn, card):
+    from pomfret_tpu_torch.tools.accuracy_scale import jax_record
+    rec = {r["noise"]: r for r in jax_record().get(
+        "noise_ramp_dense", {}).get("rows", [])}.get(DENSE_NOISE)
+    c = dn["report_counts"]
+    say("dense", f"dense chromosome (dense_params({DENSE_NOISE}), "
+        f"{dn['gaps']} gaps) made in {dn['dataset_s']:.1f} s "
+        "(0 when cached); report --engine cuda == --engine torch "
+        f"--device cuda (.report.tsv): {sum(c.values())} windows, "
+        f"{c['correct']} correct, {c['switch']} switch, {c['fail']} fail"
+        + ("" if rec is None else
+           f" (JAX engine's record: {rec['windows']} / {rec['correct']} / "
+           f"{rec['switch']} / {rec['fail']})")
+        + f"; methphase cuda == torch (.mp.vcf/.mp.gtf), decisions "
+        f"{dn['methphase_decisions']}; {card}")
+    for name, r in dn["runs"].items():
+        say("dense", f"{name}: wall {r['wall_s']:.2f} s, "
+            f"{r['window_reads']} window reads, peak RSS "
+            f"{r['peak_rss_mib']:.0f} MiB, loop-kernel launches "
+            f"{r['kernel_launches']['loop_kernel']}, packed "
+            + ", ".join(f"{s['batches']} x ({s['G']},{s['R']},{s['S']}) "
+                        f"D={s['D']} nc={s['nc_cap']} {s['layout']}"
+                        for s in r["packed_shapes"])
+            + f"; loop kernel lanes by placement "
+            f"{r['loop_kernel']['placements']}, by row route "
+            f"{r['loop_kernel']['row_routes']}, shapes "
+            + ", ".join(f"({s['G']},{s['R']},{s['S']}) D={s['D']} "
+                        f"nc={s['nc_cap']} x{s['launches']} shared "
+                        f"{'+'.join(s['shared']) or 'none'}"
+                        for s in r["loop_kernel"]["shapes"])
+            + f"; stages {r['stages']}; {card}")
+    pr = dn["profile"]
+    say("dense", f"warm methphase --engine cuda on the dense chromosome "
+        f"under torch.profiler: wall {pr['wall_s']:.2f} s, device busy "
+        f"{pr['device_busy_s'] * 1e3:.1f} ms in {pr['device_events']} "
+        f"events (idle {100 * pr['device_idle_share']:.1f}%), loop_kernel "
+        f"{pr['loop_kernel_s'] * 1e3:.2f} ms; {card}")
+    rg, k = dn["run_gap"], dn["kernel"]
+    say("dense", f"run_gap cuda == host oracle (decisions, tags) on the "
+        f"first dense gap: walls " + ", ".join(
+            f"{n} {w:.1f} s" for n, w in rg["walls_s"].items())
+        + f"; {card}")
+    say("dense", f"loop kernel alone on gaps {list(DENSE_GAPS)}: "
+        f"({k['G']},{k['R']},{k['S']}) D={k['D']} nc={k['nc_cap']} "
+        f"{k['layout']}, shared {'+'.join(k['shape']['shared'])}; == "
+        f"loop_plain; {k['iters']} iterations max, {k['lane_iterations']} "
+        f"lane iterations; whole call {k['ms']:.3f} ms, device "
+        f"{k['device_ms']:.3f} ms, bound {k['bound_ms']:.4f} ms "
+        f"({k['bound_by']}), {100 * k['bound_ms'] / k['device_ms']:.2f}% "
+        f"of the device time; loop_plain {k['plain_ms']:.1f} ms; {card}")
+
+
 def scale_dataset():
-    """bench.py's 200-gap scale dataset, cached under .bench_data/ (same key
-    as bench.py, so either can reuse the other's copy)."""
-    key = hashlib.sha1(json.dumps(SCALE_PARAMS, sort_keys=True)
-                       .encode()).hexdigest()[:12]
-    d = os.path.join(ROOT, ".bench_data", key)
-    bam = os.path.join(d, "scale.bam")
-    vcf = os.path.join(d, "multichrom.vcf.gz")
-    if not all(os.path.exists(p) for p in (bam, vcf, bam + ".bai")):
-        from pomfret_tpu_torch.testing import make_multichrom_multigap_scenario
-        os.makedirs(d, exist_ok=True)
-        make_multichrom_multigap_scenario(
-            d, bam_threads=max(2, os.cpu_count() or 2), bam_name="scale.bam",
-            **SCALE_PARAMS)
-    n_gaps = len(SCALE_PARAMS["per_chrom"]) * (SCALE_PARAMS["n_blocks"] - 1)
-    return bam, vcf, n_gaps
+    """bench.py's 200-gap scale dataset (testing.scale_params(1)), cached
+    under .bench_data/ (same key as bench.py, so either can reuse the
+    other's copy)."""
+    from pomfret_tpu_torch.testing import cached_dataset, scale_params
+    return cached_dataset(ROOT, scale_params(1), "scale.bam")[:3]
+
+
+# Makes one dataset (testing.cached_dataset) in a process of its own and
+# prints its (bam, vcf, n_gaps, seconds) as a MADE line.
+_MAKE = r"""
+import json, sys
+sys.path.insert(0, sys.argv[1])
+from pomfret_tpu_torch.testing import cached_dataset
+print("MADE " + json.dumps(cached_dataset(sys.argv[1], json.loads(sys.argv[2]),
+                                          sys.argv[3])), flush=True)
+"""
+
+
+class DatasetMaker:
+    """A dataset made in a child process while other phases run; the
+    script stops every maker it started (`started`) before it exits."""
+    started = []
+
+    def __init__(self, params, bam_name):
+        DatasetMaker.started.append(self)
+        self.proc = subprocess.Popen(
+            [sys.executable, "-c", _MAKE, ROOT, json.dumps(params), bam_name],
+            cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True)
+
+    def result(self, timeout=900):
+        """(bam, vcf, n_gaps, the child's making seconds)."""
+        out, err = self.proc.communicate(timeout=timeout)
+        line = [x for x in out.splitlines() if x.startswith("MADE ")]
+        check(self.proc.returncode == 0 and line, f"making a dataset exited "
+              f"{self.proc.returncode}: {err[-2000:]}")
+        return tuple(json.loads(line[-1][5:]))
+
+    def stop(self):
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.communicate()
 
 
 def cli_main(argv):
@@ -1226,6 +1442,17 @@ def main(argv=()):
         f"{' '.join(_build.NVCC_FLAGS)}) and {native_path} (g++) in "
         f"{report['build_s']:.1f} s")
 
+    # the dense chromosome is made in a child process while phases 3-9 run
+    from pomfret_tpu_torch.testing import dense_params
+    if not {"--only-probes", "--v3-lanes", "--only-kernels"} & set(argv):
+        dense_maker = DatasetMaker(dense_params(DENSE_NOISE),
+                                   "dense_noise.bam")
+    if "--only-dense" in argv:  # phase 10 alone, no result line
+        report["dense"] = dn = phase_dense(
+            dev, dense_maker.result(), tempfile.mkdtemp(prefix="chip_smoke_"))
+        say_dense(dn, card)
+        write_report(report, "chip_smoke_dense.json")
+        return 0
     if "--only-probes" in argv:  # phase 3b alone, for quick chip calls
         t0 = time.perf_counter()
         report["probes"] = pb = phase_probes(dev)
@@ -1509,6 +1736,10 @@ def main(argv=()):
         + f", decisions and tags equal; methphase outputs == phase 4's; "
         f"{card}")
 
+    # 10: the dense chromosome, each run counted from zero
+    report["dense"] = dn = phase_dense(dev, dense_maker.result(), work)
+    say_dense(dn, card)
+
     loaded = sorted(m for m in sys.modules
                     if m in ("jax", "pomfret_tpu")
                     or m.startswith(("jax.", "pomfret_tpu.")))
@@ -1529,7 +1760,12 @@ def main(argv=()):
          "ms": kv["ms"], "device_ms": kv["device_ms"],
          "plain_ms": kv["plain_ms"],
          "bound_ms": bnd["loop_kernel"]["bound_ms"],
-         "bound_by": bnd["loop_kernel"]["bound_by"], "library_ms": None}] + [
+         "bound_by": bnd["loop_kernel"]["bound_by"], "library_ms": None,
+         "dense": {k: dn["kernel"][k] for k in (
+             "G", "R", "S", "D", "nc_cap", "iters", "ms", "device_ms",
+             "plain_ms", "bound_ms", "bound_by")} | {"launches": sum(
+                 dn["runs"][r]["kernel_launches"]["loop_kernel"]
+                 for r in ("report_cuda", "methphase_cuda"))}}] + [
         {"name": name, "route": "cuda", "source": csrc + f"{name}.cu",
          "replaces": f"pomfret_tpu/kernels/engine_fused.py:{line}",
          "launches": gens[gen]["kernel_launches"][name],
@@ -1554,4 +1790,8 @@ def main(argv=()):
 
 
 if __name__ == "__main__":
-    sys.exit(main(sys.argv[1:]))
+    try:
+        sys.exit(main(sys.argv[1:]))
+    finally:
+        for maker in DatasetMaker.started:
+            maker.stop()

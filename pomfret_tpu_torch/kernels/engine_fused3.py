@@ -173,8 +173,11 @@ def run_batch_fused3(ids, has_mmr, hp_init, seed_ok, n_reads, n_sites,
     global past ~950 row slots) and by
     how candidate rows arrive in `.row_routes` ("bulk": cp.async.bulk,
     "loads": ordinary loads, when a row's bytes are not a multiple of 16;
-    "global": rows read in place). CPU tensors: loop_plain. Any other
-    device raises. A build or launch failure raises; nothing falls back.
+    "global": rows read in place); and its launches by shape in `.shapes`:
+    (G, R, S, D, nc_cap) -> {"launches": n, "shared": the buffers kept in
+    shared memory, of "slots", "sums", "table", "rows"}. CPU tensors:
+    loop_plain. Any other device raises. A build or launch failure raises;
+    nothing falls back.
 
     Keyword-only outputs, off by default: phase_cycles, a (G, 6) int64
     CUDA tensor the kernel fills with each lane's clock cycles by phase
@@ -225,9 +228,18 @@ def run_batch_fused3(ids, has_mmr, hp_init, seed_ok, n_reads, n_sites,
                      G)
     run_batch_fused3.row_routes[
         "bulk" if bulk else "loads" if rows_shared else "global"] += G
+    shape = run_batch_fused3.shapes.setdefault((G, R, S, D, nc_cap), {
+        "launches": 0, "shared": [name for name, bit in _BUFFERS
+                                  if place & bit]})
+    shape["launches"] += 1
     return hp, stats
+
+
+_BUFFERS = (("slots", SLOTS_SHARED), ("sums", SUMS_SHARED),
+            ("table", TABLE_SHARED), ("rows", ROWS_SHARED))
 
 
 run_batch_fused3.launches = 0
 run_batch_fused3.placements = _placements()
 run_batch_fused3.row_routes = {"bulk": 0, "loads": 0, "global": 0}
+run_batch_fused3.shapes = {}

@@ -246,13 +246,16 @@ def _run_batch(t: Dict[str, torch.Tensor], batch: GapBatch, engine: str):
 
 
 # dispatch observability, the keys of pomfret_tpu.parallel.batch's
-# DISPATCH_STATS plus kernel_launches (launches by kernel name)
+# DISPATCH_STATS plus kernel_launches (launches by kernel name) and shapes
+# (batches dispatched by (G, R, S, D, nc_cap, layout), layout "runs" or
+# "dense")
 DISPATCH_STATS = {"n_dispatches": 0, "n_devices_last": 1, "lanes_last": 0,
                   "window_reads": 0,
                   "gaps_decided": 0, "device_wait_s": 0.0, "real_lanes": 0,
                   "prefetch_put_wait_s": 0.0, "prefetch_get_wait_s": 0.0,
                   "prefetch_groups": 0, "prefetch_queue_depth_sum": 0,
-                  "kernel_launches": {name: 0 for name in KERNELS}}
+                  "kernel_launches": {name: 0 for name in KERNELS},
+                  "shapes": {}}
 
 
 class PendingBatch:
@@ -387,6 +390,10 @@ def run_gap_batch_async(batch: GapBatch, max_iters: Optional[int] = None, *,
     DISPATCH_STATS["n_dispatches"] += 1
     DISPATCH_STATS["n_devices_last"] = n
     DISPATCH_STATS["lanes_last"] = G
+    shape = batch.shape3 + (batch.D, batch.nc_cap,
+                            "dense" if batch.blk is None else "runs")
+    DISPATCH_STATS["shapes"][shape] = DISPATCH_STATS["shapes"].get(shape,
+                                                                   0) + 1
     if n == 1:
         return _dispatch(batch, max_iters, engine, devices[0])
     step = G // n

@@ -498,6 +498,77 @@ def make_multichrom_multigap_scenario(tmpdir: str, n_chroms: int = 2,
     return bam, vcf, truths
 
 
+# The accuracy and scale datasets, as the JAX package's bench.py
+# (build_scale_dataset) and tools/accuracy_scale.py define them: the same
+# parameter dicts, so the same .bench_data/<key>/ cache serves both.
+_SCALE_CHROMS = [
+    {"read_stagger": 700, "cpg_every": 100, "read_len": 20_000},
+    {"read_stagger": 1000, "cpg_every": 120, "read_len": 20_000,
+     "noise": 0.02, "nocall": 0.02},
+    {"read_stagger": 1400, "cpg_every": 160, "read_len": 20_000},
+    {"read_stagger": 2000, "cpg_every": 200, "read_len": 20_000,
+     "noise": 0.03, "nocall": 0.03},
+]
+# ~220x: a gap window holds ~1.6k reads, the R=1792 bucket
+_DENSE_CHROM = {"read_stagger": 180, "cpg_every": 120, "read_len": 20_000,
+                "noise": 0.02}
+NOISE_LEVELS = (0.05, 0.10, 0.15, 0.20, 0.25)
+
+
+def scale_params(scale: int) -> dict:
+    """The BENCH_SCALE=scale dataset (bench.py build_scale_dataset): four
+    chromosomes at 19-56x, and for scale > 1 a dense ~220x fifth; 50 *
+    scale gaps a chromosome."""
+    per_chrom = [dict(c) for c in _SCALE_CHROMS]
+    if scale > 1:
+        per_chrom.append(dict(_DENSE_CHROM))
+    return dict(n_blocks=50 * scale + 1, block_len=60_000, gap_len=30_000,
+                per_chrom=per_chrom)
+
+
+def trans_params(scale: int) -> dict:
+    """The trans-truth set at BENCH_SCALE=scale (tools/accuracy_scale.py
+    main_trans): scale_params(scale) marked trans; every gap's truth is a
+    trans join (make_multichrom_multigap_scenario trans_alternate)."""
+    return dict(scale_params(scale), trans=True)
+
+
+def dense_params(noise: float) -> dict:
+    """One dense ~220x chromosome of 36 blocks at the given noise
+    (tools/accuracy_scale.py main_noise)."""
+    return dict(n_blocks=36, block_len=60_000, gap_len=30_000,
+                per_chrom=[{"read_stagger": 180, "cpg_every": 120,
+                            "read_len": 20_000, "noise": noise,
+                            "nocall": 0.05}])
+
+
+def dataset_key(params: dict) -> str:
+    """The cache key of a dataset: sha1 of its sorted JSON, 12 hex digits."""
+    import hashlib
+    return hashlib.sha1(json.dumps(params, sort_keys=True)
+                        .encode()).hexdigest()[:12]
+
+
+def cached_dataset(root: str, params: dict, bam_name: str,
+                   trans_alternate: bool = False):
+    """(bam, vcf, n_gaps, seconds spent making it) of the dataset `params`
+    under <root>/.bench_data/<dataset_key(params)>/, made there first if
+    the BAM, its index or the VCF is missing (0 seconds when cached)."""
+    d = os.path.join(root, ".bench_data", dataset_key(params))
+    bam = os.path.join(d, bam_name)
+    vcf = os.path.join(d, "multichrom.vcf.gz")
+    t0 = time.perf_counter()
+    if not all(os.path.exists(p) for p in (bam, vcf, bam + ".bai")):
+        os.makedirs(d, exist_ok=True)
+        make_multichrom_multigap_scenario(
+            d, n_blocks=params["n_blocks"], block_len=params["block_len"],
+            gap_len=params["gap_len"], per_chrom=params["per_chrom"],
+            bam_threads=max(2, os.cpu_count() or 2), bam_name=bam_name,
+            trans_alternate=trans_alternate)
+    n_gaps = len(params["per_chrom"]) * (params["n_blocks"] - 1)
+    return bam, vcf, n_gaps, time.perf_counter() - t0
+
+
 def make_multi_block_scenario(tmpdir: str, n_blocks: int = 6,
                               block_len: int = 60_000, gap_len: int = 30_000,
                               cfg: Optional[SynthConfig] = None):

@@ -7,8 +7,9 @@
   probes entry point runs one probe on the CPU. After them
   sys.modules holds no jax and no pomfret_tpu or pomfret_tpu.* module.
 - Statically, no .py under pomfret_tpu_torch/, nor chip_smoke.py, imports
-  pomfret_tpu in any form (import, from-import, importlib.import_module
-  or __import__ of a name in it).
+  pomfret_tpu, jax, bench.py or the root tools/ scripts in any form
+  (import, from-import, importlib.import_module or __import__ of a name in
+  them).
 """
 import ast
 import glob
@@ -26,6 +27,7 @@ import pomfret_tpu_torch.kernels.engine_fused
 import pomfret_tpu_torch.kernels.engine_fused3
 import pomfret_tpu_torch.parallel.batch as batch
 import pomfret_tpu_torch.pipeline
+import pomfret_tpu_torch.tools.accuracy_scale
 import pomfret_tpu_torch.tools.probes as probes
 from pomfret_tpu_torch.kernels.engine_torch import run_gap
 from pomfret_tpu_torch.testing import SynthConfig, make_two_block_scenario
@@ -105,6 +107,10 @@ def _names_imported(tree):
 
 
 def test_no_import_of_the_jax_package():
+    assert {"tools", "bench", "jax"} <= {
+        n.split(".")[0] for n in _names_imported(ast.parse(
+            "import bench\nfrom tools.accuracy_scale import main\n"
+            "import jax.numpy"))}
     files = sorted(glob.glob(os.path.join(REPO, "pomfret_tpu_torch", "**",
                                           "*.py"), recursive=True))
     files.append(os.path.join(REPO, "chip_smoke.py"))
@@ -114,6 +120,7 @@ def test_no_import_of_the_jax_package():
         with open(path) as f:
             tree = ast.parse(f.read(), path)
         for name in _names_imported(tree):
-            if name == "pomfret_tpu" or name.startswith("pomfret_tpu."):
+            if name.split(".")[0] in ("pomfret_tpu", "jax", "bench",
+                                      "tools"):
                 bad.append((os.path.relpath(path, REPO), name))
     assert not bad, bad
