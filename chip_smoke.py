@@ -115,10 +115,13 @@ Phases, each printing one line:
     production_mesh too; prints the times.
  10. dense: the dense ~220x chromosome of 36 blocks at noise 0.05
     (testing.dense_params, the first row of the JAX record's
-    noise_ramp_dense; made in a child process while phases 3-9 run, its
-    making time printed apart): `report --chunk-size 50000 --chunk-stride
-    15000` and then `methphase`, each --engine cuda against --engine torch
-    --device cuda, .report.tsv and .mp.vcf/.mp.gtf byte-identical; no
+    noise_ramp_dense; made in a spawned process while the scale dataset
+    is made, after phase 3b, and waited for before phase 4a, so that no
+    timed phase shares the host with it; its making time printed apart):
+    `report --chunk-size 50000 --chunk-stride 15000` and then
+    `methphase`, each --engine cuda against --engine torch --device cuda
+    and each in a spawned process of its own (its peak RSS is its
+    own run's), .report.tsv and .mp.vcf/.mp.gtf byte-identical; no
     switch, methphase cis or fail only; the correct/switch/fail counts
     beside the JAX record's (printed, not checked); one more warm
     methphase under torch.profiler (device busy time, idle share); fails
@@ -128,8 +131,10 @@ Phases, each printing one line:
     run's wall, stage seconds, window reads, packed shapes, loop-kernel
     lanes by placement and row route, peak RSS and launches, counted from
     zero; run_gap cuda == the host oracle on the first dense gap (the
-    oracle's wall); the loop kernel alone on one dense batch (gaps 0, 1,
-    17, 34), == loop_plain, its device time, iterations and loop_bound.
+    oracle's wall); the loop kernel alone on methphase's own batch (every
+    gap packed as methphase packs them, checked to be the shape it
+    packed), == loop_plain, its device time, iterations, loop_bound and
+    its launches at that shape in the runs above.
 The script then checks that no jax, pomfret_tpu or pomfret_tpu.* module
 was loaded. Then a JSON line of the kernels (with each one's bound: the
 larger of its bytes over the HBM rate and its operations over the f32
@@ -980,10 +985,8 @@ def phase_mesh(dev, base, p_c):
 
 
 # phase 10: the dense chromosome at the first noise level of the JAX
-# record's noise_ramp_dense, and the gaps whose windows pack_group makes one
-# (32, 1792, 1536) runs batch of, D 32, nc_cap 64
+# record's noise_ramp_dense
 DENSE_NOISE = 0.05
-DENSE_GAPS = (0, 1, 17, 34)
 
 
 def is_dense(s):
@@ -991,10 +994,11 @@ def is_dense(s):
     return (s["R"], s["S"], s["nc_cap"]) == (1792, 1536, 64) and s["D"] >= 32
 
 
-def dense_run(dev, cmd, args):
-    """One CLI run counted from zero (tools.accuracy_scale.counted): its
-    wall, stage seconds, window reads, packed shapes, loop-kernel lanes
-    and shapes, peak RSS, and each kernel's launches."""
+def shape_key(s):
+    return s["G"], s["R"], s["S"], s["D"], s["nc_cap"]
+
+
+def _dense_run(dev, cmd, args):
     from pomfret_tpu_torch.tools.accuracy_scale import counted
     zero_counts()
     rc, wall, row = counted(lambda: cli_main([cmd, *args]), dev)
@@ -1002,10 +1006,19 @@ def dense_run(dev, cmd, args):
     return dict(row, wall_s=wall, kernel_launches=read_counts())
 
 
+def dense_run(dev, cmd, args):
+    """One CLI run in a spawned process of its own (its peak RSS is the
+    run's own), counted from zero there (tools.accuracy_scale.counted): its
+    wall, stage seconds, window reads, packed shapes, loop-kernel lanes
+    and shapes, peak RSS, and each kernel's launches."""
+    from pomfret_tpu_torch.testing import Spawned
+    return Spawned(_dense_run, dev, cmd, args).result(timeout=600)
+
+
 def dense_batch(bam_path, vcf, dev):
-    """The dense chromosome's DENSE_GAPS packed as methphase packs them
-    (coverage-derived parameters): the loop's tensors on `dev` (ids
-    densified), D and nc_cap, and the part's layout."""
+    """Every gap of the dense chromosome packed as methphase packs them
+    (coverage-derived parameters, one group): the loop's tensors on `dev`
+    (ids densified), D and nc_cap, and the part's layout."""
     import torch
     from pomfret_tpu_torch.core.methmer import get_methmer_sites_and_ranges
     from pomfret_tpu_torch.core.readset import (READBACK,
@@ -1019,7 +1032,7 @@ def dense_batch(bam_path, vcf, dev):
     job = gap_jobs(bam_path, st)[0]
     rg, cfg = job["rg"], job["cfg"]
     loaded = []
-    for i in DENSE_GAPS:
+    for i in job["indices"]:
         rs = load_reads_given_interval(bam, job["ref_name"], rg.starts[i],
                                        rg.ends[i], READBACK, cfg)
         loaded.append((i, rs, get_methmer_sites_and_ranges(rs, cfg, 0),
@@ -1038,12 +1051,13 @@ def dense_batch(bam_path, vcf, dev):
 def phase_dense(dev, made, work):
     """Phase 10 on the dense chromosome (`made`: bam, vcf, gaps, making
     seconds): report, then methphase, --engine cuda against --engine torch
-    on the card, byte for byte; no switch, methphase cis or fail only; a
-    batch of the dense buckets packed and run by the loop kernel with its
-    count table in global memory; run_gap cuda == the host oracle on the
-    first gap; the loop kernel alone on DENSE_GAPS' batch, == loop_plain,
-    with its device time, iterations and bound; a warm methphase under
-    torch.profiler."""
+    on the card, each run in a process of its own, byte for byte; no
+    switch, methphase cis or fail only; a batch of the dense buckets
+    packed and run by the loop kernel with its count table in global
+    memory; run_gap cuda == the host oracle on the first gap; the loop
+    kernel alone on methphase's own batch, == loop_plain, with its device
+    time, iterations, bound and its launches at that shape in the runs; a
+    warm methphase under torch.profiler."""
     import torch
     from pomfret_tpu_torch.kernels import engine_fused3 as f3
     from pomfret_tpu_torch.tools.accuracy_scale import report_counts
@@ -1083,13 +1097,21 @@ def phase_dense(dev, made, work):
 
     t, D, nc_cap, layout = dense_batch(bam, vcf, dev)
     kw = dict(D=D, nc_cap=nc_cap)
+    G, R, S = t[0].shape
+    key = (G, R, S, D, nc_cap)
+    check(key in {shape_key(s)
+                  for s in runs["methphase_cuda"]["packed_shapes"]},
+          f"the dense gaps packed {key}, methphase "
+          f"{runs['methphase_cuda']['packed_shapes']}")
     hk, sk = f3.run_batch_fused3(*t, **kw)
     need = {}  # what these inputs need of the kernel, for its bound
     hpl, spl = f3.loop_plain(*t, **kw, work=need)
     check(torch.equal(hk, hpl) and torch.equal(sk, spl),
           "loop kernel != loop_plain on the dense batch")
-    G, R, S = t[0].shape
     kernel = dict(G=G, R=R, S=S, D=D, nc_cap=nc_cap, layout=layout,
+                  launches=sum(s["launches"] for r in cuda
+                               for s in r["loop_kernel"]["shapes"]
+                               if shape_key(s) == key),
                   shape=f3.run_batch_fused3.shapes[(G, R, S, D, nc_cap)],
                   iters=int(sk[:, 0].max()),
                   lane_iterations=int(sk[:, 0].long().sum()),
@@ -1145,9 +1167,10 @@ def say_dense(dn, card):
         f"first dense gap: walls " + ", ".join(
             f"{n} {w:.1f} s" for n, w in rg["walls_s"].items())
         + f"; {card}")
-    say("dense", f"loop kernel alone on gaps {list(DENSE_GAPS)}: "
+    say("dense", f"loop kernel alone on methphase's batch (every gap): "
         f"({k['G']},{k['R']},{k['S']}) D={k['D']} nc={k['nc_cap']} "
-        f"{k['layout']}, shared {'+'.join(k['shape']['shared'])}; == "
+        f"{k['layout']}, shared {'+'.join(k['shape']['shared'])}, "
+        f"{k['launches']} launch(es) at this shape in the runs; == "
         f"loop_plain; {k['iters']} iterations max, {k['lane_iterations']} "
         f"lane iterations; whole call {k['ms']:.3f} ms, device "
         f"{k['device_ms']:.3f} ms, bound {k['bound_ms']:.4f} ms "
@@ -1163,41 +1186,19 @@ def scale_dataset():
     return cached_dataset(ROOT, scale_params(1), "scale.bam")[:3]
 
 
-# Makes one dataset (testing.cached_dataset) in a process of its own and
-# prints its (bam, vcf, n_gaps, seconds) as a MADE line.
-_MAKE = r"""
-import json, sys
-sys.path.insert(0, sys.argv[1])
-from pomfret_tpu_torch.testing import cached_dataset
-print("MADE " + json.dumps(cached_dataset(sys.argv[1], json.loads(sys.argv[2]),
-                                          sys.argv[3])), flush=True)
-"""
-
-
-class DatasetMaker:
-    """A dataset made in a child process while other phases run; the
-    script stops every maker it started (`started`) before it exits."""
-    started = []
-
-    def __init__(self, params, bam_name):
-        DatasetMaker.started.append(self)
-        self.proc = subprocess.Popen(
-            [sys.executable, "-c", _MAKE, ROOT, json.dumps(params), bam_name],
-            cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-            text=True)
-
-    def result(self, timeout=900):
-        """(bam, vcf, n_gaps, the child's making seconds)."""
-        out, err = self.proc.communicate(timeout=timeout)
-        line = [x for x in out.splitlines() if x.startswith("MADE ")]
-        check(self.proc.returncode == 0 and line, f"making a dataset exited "
-              f"{self.proc.returncode}: {err[-2000:]}")
-        return tuple(json.loads(line[-1][5:]))
-
-    def stop(self):
-        if self.proc.poll() is None:
-            self.proc.kill()
-            self.proc.communicate()
+def dense_dataset(beside=lambda: None):
+    """(bam, vcf, n_gaps, making seconds) of the dense chromosome, made in
+    a spawned process while beside() runs here; returns beside()'s result
+    too."""
+    from pomfret_tpu_torch.testing import (Spawned, cached_dataset,
+                                           dense_params)
+    maker = Spawned(cached_dataset, ROOT, dense_params(DENSE_NOISE),
+                    "dense_noise.bam")
+    try:
+        here = beside()
+        return maker.result(timeout=900), here
+    finally:
+        maker.stop()
 
 
 def cli_main(argv):
@@ -1442,14 +1443,9 @@ def main(argv=()):
         f"{' '.join(_build.NVCC_FLAGS)}) and {native_path} (g++) in "
         f"{report['build_s']:.1f} s")
 
-    # the dense chromosome is made in a child process while phases 3-9 run
-    from pomfret_tpu_torch.testing import dense_params
-    if not {"--only-probes", "--v3-lanes", "--only-kernels"} & set(argv):
-        dense_maker = DatasetMaker(dense_params(DENSE_NOISE),
-                                   "dense_noise.bam")
     if "--only-dense" in argv:  # phase 10 alone, no result line
         report["dense"] = dn = phase_dense(
-            dev, dense_maker.result(), tempfile.mkdtemp(prefix="chip_smoke_"))
+            dev, dense_dataset()[0], tempfile.mkdtemp(prefix="chip_smoke_"))
         say_dense(dn, card)
         write_report(report, "chip_smoke_dense.json")
         return 0
@@ -1518,7 +1514,9 @@ def main(argv=()):
 
     work = tempfile.mkdtemp(prefix="chip_smoke_")
     t0 = time.perf_counter()
-    bam, vcf, n_gaps = scale_dataset()
+    # both sets made at once, and no phase after this one timed beside a
+    # maker
+    dense, (bam, vcf, n_gaps) = dense_dataset(scale_dataset)
     report["dataset_s"] = time.perf_counter() - t0
     p_c, p_c2, p_t = (os.path.join(work, n) for n in ("cuda", "cuda2",
                                                        "torch"))
@@ -1737,7 +1735,7 @@ def main(argv=()):
         f"{card}")
 
     # 10: the dense chromosome, each run counted from zero
-    report["dense"] = dn = phase_dense(dev, dense_maker.result(), work)
+    report["dense"] = dn = phase_dense(dev, dense, work)
     say_dense(dn, card)
 
     loaded = sorted(m for m in sys.modules
@@ -1762,10 +1760,8 @@ def main(argv=()):
          "bound_ms": bnd["loop_kernel"]["bound_ms"],
          "bound_by": bnd["loop_kernel"]["bound_by"], "library_ms": None,
          "dense": {k: dn["kernel"][k] for k in (
-             "G", "R", "S", "D", "nc_cap", "iters", "ms", "device_ms",
-             "plain_ms", "bound_ms", "bound_by")} | {"launches": sum(
-                 dn["runs"][r]["kernel_launches"]["loop_kernel"]
-                 for r in ("report_cuda", "methphase_cuda"))}}] + [
+             "G", "R", "S", "D", "nc_cap", "iters", "launches", "ms",
+             "device_ms", "plain_ms", "bound_ms", "bound_by")}}] + [
         {"name": name, "route": "cuda", "source": csrc + f"{name}.cu",
          "replaces": f"pomfret_tpu/kernels/engine_fused.py:{line}",
          "launches": gens[gen]["kernel_launches"][name],
@@ -1790,8 +1786,4 @@ def main(argv=()):
 
 
 if __name__ == "__main__":
-    try:
-        sys.exit(main(sys.argv[1:]))
-    finally:
-        for maker in DatasetMaker.started:
-            maker.stop()
+    sys.exit(main(sys.argv[1:]))

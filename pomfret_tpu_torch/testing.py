@@ -11,7 +11,7 @@ chip_smoke.py.
 - Randomized and crafted loop batches, the bench-shape batch and
   checked_step, for holding the kernels against their plain versions.
 - run_processes: one CLI command run by several processes of one gloo
-  process group on this host.
+  process group on this host; Spawned: one call in a spawned process.
 """
 from __future__ import annotations
 
@@ -567,6 +567,56 @@ def cached_dataset(root: str, params: dict, bam_name: str,
             trans_alternate=trans_alternate)
     n_gaps = len(params["per_chrom"]) * (params["n_blocks"] - 1)
     return bam, vcf, n_gaps, time.perf_counter() - t0
+
+
+def _spawned_main(conn, fn, args):
+    try:
+        out = ("ok", fn(*args))
+    except BaseException:
+        import traceback
+        out = ("err", traceback.format_exc())
+    conn.send(out)
+    conn.close()
+
+
+class Spawned:
+    """fn(*args) in a spawned process of its own, started at once: a
+    dataset maker (cached_dataset) beside other work, or a run whose peak
+    RSS (ru_maxrss) must be its own. result() waits for what fn returned
+    (a RuntimeError with the child's traceback where it raised or died);
+    stop() kills the child if it still runs. The child is a daemon: it
+    starts no process of its own, and it is stopped when its parent
+    exits."""
+
+    def __init__(self, fn, *args):
+        import multiprocessing
+        ctx = multiprocessing.get_context("spawn")
+        self._conn, child = ctx.Pipe(duplex=False)
+        self.proc = ctx.Process(target=_spawned_main, args=(child, fn, args),
+                                daemon=True)
+        self.proc.start()
+        child.close()
+        self._out = None
+
+    def result(self, timeout=None):
+        if self._out is None:
+            if not self._conn.poll(timeout):
+                self.stop()
+                raise RuntimeError(f"{self.proc.name} ran over {timeout} s")
+            try:
+                self._out = self._conn.recv()
+            except EOFError:
+                self._out = ("err", f"{self.proc.name} died")
+            self.proc.join()
+        kind, out = self._out
+        if kind == "err":
+            raise RuntimeError(f"{out} (exit code {self.proc.exitcode})")
+        return out
+
+    def stop(self):
+        if self.proc.is_alive():
+            self.proc.kill()
+        self.proc.join()
 
 
 def make_multi_block_scenario(tmpdir: str, n_blocks: int = 6,

@@ -3,9 +3,8 @@ counterpart).
 
 Three modes, each with the JAX tool's row fields; name any of them
 (--cis, --trans, --noise; --cis alone when none is named). Their datasets
-are all made at once, and the modes run one after another (noise, trans,
-cis), each as soon as its own datasets are made, while the others may
-still be in the making beside it:
+are all made at once, and then the modes run one after another (noise,
+trans, cis):
 - --cis: `report`, the reference's own accuracy benchmark
   (main_methreport, blockjoin.c:4908-5097), over the BENCH_SCALE=N
   dataset (testing.scale_params(N)): probe windows inside the phased
@@ -19,14 +18,16 @@ Each row adds what the run did, counted from zero: the engine and device,
 the dataset's making seconds (0 when cached), window reads, the packed
 batches by (G, R, S, D, nc_cap, layout), the loop kernel's launches,
 lanes by placement and row route and launches by shape, the stage
-seconds, the process's peak RSS over the run, and the card's name and
+seconds, the peak RSS of the run's process, and the card's name and
 power limit (nvidia-smi) when the run was on one. Beside each row the
 JAX engine's record (the root ACCURACY_SCALE.json, read and never
 written) is printed as context.
 
 Datasets are made by testing.cached_dataset under <data-root>/.bench_data/
-(the key bench.py and tools/accuracy_scale.py use), each in a child
-process of its own. Rows merge into --out, by default
+(the key bench.py and tools/accuracy_scale.py use), each in a spawned
+process of its own. No row runs until every set is made, and each row
+runs in a spawned process of its own: its wall is taken on a host no
+maker shares, and its peak RSS is its own run's. Rows merge into --out, by default
 chiprun_out/accuracy_scale.json of the checkout; each report's .report.tsv
 stays beside it (accuracy_scale_cis_scale<N>.report.tsv,
 accuracy_scale_noise<level>.report.tsv).
@@ -37,15 +38,13 @@ accuracy_scale_noise<level>.report.tsv).
     python -m pomfret_tpu_torch.tools.accuracy_scale --noise
         [--levels 0.05,0.15,0.25]
     python -m pomfret_tpu_torch.tools.accuracy_scale --cis --trans --noise
-        --scale 5 --trans-scale 3
+        --scale 2
     ... --engine torch --device cpu --blocks 3   # the CPU, a small set
 """
 from __future__ import annotations
 
 import argparse
-import concurrent.futures
 import json
-import multiprocessing
 import os
 import resource
 import subprocess
@@ -70,31 +69,31 @@ def card_line():
     return out.strip().splitlines()[0]
 
 
-def reset_peak_rss() -> bool:
-    """Restart the process's peak RSS from its current RSS (Linux:
-    clear_refs 5 resets what ru_maxrss reads); False where it cannot."""
-    try:
-        with open("/proc/self/clear_refs", "w") as f:
-            f.write("5")
-        return True
-    except OSError:
-        return False
+def ready(device):
+    """The card's context made and the kernels' library built and loaded
+    before a run is timed: a spawned process starts with neither."""
+    if device is not None and device.type == "cuda":
+        import torch
+        from ..kernels import _build
+        torch.zeros(1, device=device)
+        _build.get_lib()
 
 
 def counted(run, device):
-    """run() with the dispatch, kernel and stage counters from zero; returns
-    (run's result, wall seconds, the row's added fields)."""
+    """run() with the dispatch, kernel and stage counters from zero, the
+    card made ready first; returns (run's result, wall seconds, the row's
+    added fields)."""
     from ..kernels.engine_fused3 import run_batch_fused3 as loop
     from ..parallel.batch import DISPATCH_STATS
     from ..utils.stats import reset_stages, stage_report
 
+    ready(device)
     DISPATCH_STATS["shapes"].clear()
     loop.placements.update({k: 0 for k in loop.placements})
     loop.row_routes.update({k: 0 for k in loop.row_routes})
     loop.shapes.clear()
     launches0, reads0 = loop.launches, DISPATCH_STATS["window_reads"]
     reset_stages()
-    rss_reset = reset_peak_rss()
     t0 = time.perf_counter()
     out = run()
     wall = time.perf_counter() - t0
@@ -113,7 +112,6 @@ def counted(run, device):
                     for (g, r, s, d, nc), v in sorted(loop.shapes.items())]),
         stages=stage_report(3),
         peak_rss_mib=resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1024,
-        peak_rss_since_row_start=rss_reset,
         card=card_line() if on_card else None)
 
 
@@ -170,7 +168,7 @@ def dataset_specs(a, modes):
     if "cis" in modes:
         specs["cis"] = (cut(testing.scale_params(a.scale)), "scale.bam", False)
     if "trans" in modes:
-        specs["trans"] = (cut(testing.trans_params(a.trans_scale)),
+        specs["trans"] = (cut(testing.trans_params(a.scale)),
                           "scale_trans.bam", True)
     for noise in a.levels if "noise" in modes else ():
         specs[noise] = (cut(testing.dense_params(noise)), "dense_noise.bam",
@@ -178,21 +176,26 @@ def dataset_specs(a, modes):
     return specs
 
 
-def main_cis(a, specs, data, engine, device):
-    bam, vcf, n_gaps, made_s = data["cis"].result()
+def cis_row(a, params, made, engine, device):
+    bam, vcf, n_gaps, made_s = made
     counts, per_chrom, wall, extra = run_report(
         bam, vcf, engine, device, a.chunk_stride,
         report_prefix(a, f"cis_scale{a.scale}"))
     correct, switch, fail = (counts["correct"], counts["switch"],
                              counts["fail"])
     n = correct + switch + fail
-    row = {"bench_scale": a.scale, "n_blocks": specs["cis"][0]["n_blocks"],
-           "dataset_gaps": n_gaps, "chunk_stride": a.chunk_stride,
-           "wall_s": round(wall, 1), "windows": n, "correct": correct,
-           "switch": switch, "fail": fail,
-           "correct_over_decided": _pct(correct, correct + switch),
-           "correct_over_n": _pct(correct, n), "per_chrom": per_chrom,
-           "engine": engine, "dataset_s": made_s, **extra}
+    return {"bench_scale": a.scale, "n_blocks": params["n_blocks"],
+            "dataset_gaps": n_gaps, "chunk_stride": a.chunk_stride,
+            "wall_s": round(wall, 1), "windows": n, "correct": correct,
+            "switch": switch, "fail": fail,
+            "correct_over_decided": _pct(correct, correct + switch),
+            "correct_over_n": _pct(correct, n), "per_chrom": per_chrom,
+            "engine": engine, "dataset_s": made_s, **extra}
+
+
+def main_cis(a, specs, data, engine, device):
+    row = testing.Spawned(cis_row, a, specs["cis"][0], data["cis"], engine,
+                          device).result()
     rec = jax_record()
     if "windows" in rec:
         say(f"JAX engine's record (BENCH_SCALE={rec['bench_scale']}, "
@@ -268,23 +271,27 @@ def trans_tally(jobs, decisions):
     return tot, per_chrom
 
 
-def main_trans(a, specs, data, engine, device):
-    bam_path, vcf, n_gaps, made_s = data["trans"].result()
+def trans_row(a, params, made, engine, device):
+    bam_path, vcf, n_gaps, made_s = made
     bam, st = load_gap_storage(bam_path, vcf)
     jobs = gap_jobs(bam_path, st)
     decisions, wall, extra = counted(
         lambda: decide_gaps(st, bam, jobs, engine, device), device)
     tot, per_chrom = trans_tally(jobs, decisions)
-    row = {"bench_scale": a.trans_scale,
-           "n_blocks": specs["trans"][0]["n_blocks"],
-           "gaps": sum(tot.values()), "wall_s": round(wall, 1),
-           "decided_trans_correct": tot["trans"],
-           "decided_cis_switch_errors": tot["cis_switch"],
-           "fail": tot["fail"],
-           "correct_over_decided": _pct(tot["trans"],
-                                        tot["trans"] + tot["cis_switch"]),
-           "per_chrom": per_chrom, "engine": engine, "dataset_s": made_s,
-           **extra}
+    return {"bench_scale": a.scale, "n_blocks": params["n_blocks"],
+            "gaps": sum(tot.values()), "wall_s": round(wall, 1),
+            "decided_trans_correct": tot["trans"],
+            "decided_cis_switch_errors": tot["cis_switch"],
+            "fail": tot["fail"],
+            "correct_over_decided": _pct(tot["trans"],
+                                         tot["trans"] + tot["cis_switch"]),
+            "per_chrom": per_chrom, "engine": engine, "dataset_s": made_s,
+            **extra}
+
+
+def main_trans(a, specs, data, engine, device):
+    row = testing.Spawned(trans_row, a, specs["trans"][0], data["trans"],
+                          engine, device).result()
     rec = jax_record().get("trans_sweep")
     if rec:
         say(f"JAX engine's record (BENCH_SCALE={rec['bench_scale']}): "
@@ -294,26 +301,28 @@ def main_trans(a, specs, data, engine, device):
     return {"trans_sweep": row}, [row]
 
 
+def noise_row(a, noise, params, made, engine, device):
+    bam, vcf, _, made_s = made
+    counts, _, wall, extra = run_report(bam, vcf, engine, device, 15_000,
+                                        report_prefix(a, f"noise{noise}"))
+    return {"noise": noise, "windows": sum(counts.values()), **counts,
+            "correct_over_decided": _pct(
+                counts["correct"], counts["correct"] + counts["switch"]),
+            "wall_s": round(wall, 1), "n_blocks": params["n_blocks"],
+            "engine": engine, "dataset_s": made_s, **extra}
+
+
 def main_noise(a, specs, data, engine, device):
     record = {r["noise"]: r for r in
               jax_record().get("noise_ramp_dense", {}).get("rows", [])}
     rows = []
     for noise in a.levels:
-        bam, vcf, _, made_s = data[noise].result()
-        counts, _, wall, extra = run_report(
-            bam, vcf, engine, device, 15_000,
-            report_prefix(a, f"noise{noise}"))
-        n = sum(counts.values())
-        rows.append({"noise": noise, "windows": n, **counts,
-                     "correct_over_decided": _pct(
-                         counts["correct"],
-                         counts["correct"] + counts["switch"]),
-                     "wall_s": round(wall, 1),
-                     "n_blocks": specs[noise][0]["n_blocks"],
-                     "engine": engine, "dataset_s": made_s, **extra})
-        say(f"noise={noise}: {n} windows, {counts['correct']} correct, "
-            f"{counts['switch']} switch, {counts['fail']} fail, "
-            f"{wall:.1f} s")
+        row = testing.Spawned(noise_row, a, noise, specs[noise][0],
+                              data[noise], engine, device).result()
+        rows.append(row)
+        say(f"noise={noise}: {row['windows']} windows, {row['correct']} "
+            f"correct, {row['switch']} switch, {row['fail']} fail, "
+            f"{row['wall_s']:.1f} s")
         if noise in record:
             r = record[noise]
             say(f"JAX engine's record at noise={noise}: {r['windows']} "
@@ -367,9 +376,6 @@ def main(argv=None) -> int:
                     help="the noise ramp on the dense chromosome")
     ap.add_argument("--scale", type=int, default=5,
                     help="BENCH_SCALE of the cis and trans sets (default 5)")
-    ap.add_argument("--trans-scale", type=int, default=None,
-                    help="BENCH_SCALE of the trans set alone (default: "
-                         "--scale)")
     ap.add_argument("--chunk-stride", type=int, default=40_000,
                     help="report's window stride, cis mode (default 40000)")
     ap.add_argument("--levels", default=",".join(map(str,
@@ -392,30 +398,27 @@ def main(argv=None) -> int:
                          "%(default)s)")
     a = ap.parse_args(argv)
     a.levels = [float(x) for x in a.levels.split(",")]
-    a.trans_scale = a.trans_scale or a.scale
     try:
         engine, device = resolve_device(a.engine, a.device)
     except (RuntimeError, ValueError) as e:
         print(f"accuracy_scale: {e}", file=sys.stderr)
         return 2
-    # the smaller runs first: RSS kept by one run is the floor of the next
-    # run's peak
     modes = [m for m in ("noise", "trans", "cis") if getattr(a, m)] or ["cis"]
     specs = dataset_specs(a, modes)
-    # every dataset made (or found) at once, each by testing.cached_dataset
-    # in a child process; a mode runs once its own are made
-    ctx = multiprocessing.get_context("spawn")
-    with concurrent.futures.ProcessPoolExecutor(len(specs),
-                                                mp_context=ctx) as ex:
-        data = {name: ex.submit(testing.cached_dataset, a.data_root, *spec)
-                for name, spec in specs.items()}
-        for mode in modes:
-            run = {"cis": main_cis, "trans": main_trans,
-                   "noise": main_noise}[mode]
-            update, rows = run(a, specs, data, engine, device)
-            merge_out(a.out, update)
-            for row in rows:
-                print(json.dumps(row), flush=True)
+    # every dataset made (or found) at once, before any row runs
+    makers = {name: testing.Spawned(testing.cached_dataset, a.data_root,
+                                    *spec) for name, spec in specs.items()}
+    try:
+        data = {name: m.result() for name, m in makers.items()}
+    finally:
+        for m in makers.values():
+            m.stop()
+    for mode in modes:
+        run = {"cis": main_cis, "trans": main_trans, "noise": main_noise}[mode]
+        update, rows = run(a, specs, data, engine, device)
+        merge_out(a.out, update)
+        for row in rows:
+            print(json.dumps(row), flush=True)
     return 0
 
 

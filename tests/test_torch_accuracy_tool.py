@@ -8,7 +8,11 @@ accuracy_scale) on the CPU, on small sets:
 - --trans at BENCH_SCALE=1 cut to 3 blocks: the port decides each gap as
   the JAX tool's logic (tools/accuracy_scale.py main_trans: the JAX
   package's run_jobs_batched on coverage-derived jobs) does, and the
-  tool's row tallies those decisions.
+  tool's row tallies those decisions;
+- testing.Spawned, which makes the sets and runs each row in a process
+  of its own, returns the child's value and raises what it raised.
+Each row runs in a spawned process of its own, with one thread and
+glibc's default heap thresholds (the environment below).
 Tolerance: exact.
 """
 import json
@@ -19,13 +23,19 @@ import torch
 
 from pomfret_tpu_torch import testing
 from pomfret_tpu_torch.tools import accuracy_scale as tool
-from torch_accuracy_cases import REPO, heap_returned, jax_tool
+from torch_accuracy_cases import REPO, jax_tool
 
 torch.set_num_threads(1)
 RECORD = os.path.join(REPO, "ACCURACY_SCALE.json")
 
 
-def _cpu(tmp_path, *argv):
+def _cpu(tmp_path, monkeypatch, *argv):
+    monkeypatch.setenv("POMFRET_NO_MESH", "1")
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
+    # utils/malloc_tune.py's 1 GiB thresholds would let the plain loop's
+    # temporaries fragment the child's heap (torch_accuracy_cases.
+    # heap_returned)
+    monkeypatch.setenv("POMFRET_NO_MALLOC_TUNE", "1")
     out = tmp_path / "acc.json"
     rc = tool.main([*argv, "--blocks", "3", "--engine", "torch", "--device",
                     "cpu", "--data-root", str(tmp_path), "--out", str(out)])
@@ -35,11 +45,9 @@ def _cpu(tmp_path, *argv):
 
 
 def test_noise_row_counts_its_report(tmp_path, monkeypatch):
-    monkeypatch.setenv("POMFRET_NO_MESH", "1")
     with open(RECORD, "rb") as f:
         before = (os.stat(RECORD).st_mtime_ns, f.read())
-    with heap_returned():
-        got = _cpu(tmp_path, "--noise", "--levels", "0.05")
+    got = _cpu(tmp_path, monkeypatch, "--noise", "--levels", "0.05")
     (row,) = got["noise_ramp_dense"]["rows"]
     with open(row["report_tsv"]) as f:
         verdicts = [line.rstrip("\n").split("\t")[3] for line in f]
@@ -64,8 +72,8 @@ def test_trans_decides_as_the_jax_tool(tmp_path, monkeypatch):
     from pomfret_tpu.pipeline import (_derive_chrom_params,
                                       estimate_read_coverage_cached)
 
-    monkeypatch.setenv("POMFRET_NO_MESH", "1")
-    row = _cpu(tmp_path, "--trans", "--scale", "1")["trans_sweep"]
+    row = _cpu(tmp_path, monkeypatch, "--trans", "--scale", "1")[
+        "trans_sweep"]
     params = dict(testing.trans_params(1), n_blocks=3)
     bam, vcf, n_gaps, _ = testing.cached_dataset(
         str(tmp_path), params, "scale_trans.bam", trans_alternate=True)
@@ -93,3 +101,14 @@ def test_trans_decides_as_the_jax_tool(tmp_path, monkeypatch):
             row["decided_cis_switch_errors"], row["fail"]) == (
         n_gaps, tot["trans"], tot["cis_switch"], tot["fail"])
     assert tot["trans"] > 0 and tot["cis_switch"] == 0
+
+
+def test_spawned_returns_and_raises():
+    """testing.Spawned, which makes the tool's sets and runs its rows: the
+    child's return value comes back; what it raised comes back as a
+    RuntimeError with the child's traceback."""
+    assert testing.Spawned(max, 3, 7).result(timeout=120) == 7
+    failing = testing.Spawned(int, "not a number")
+    with pytest.raises(RuntimeError, match="ValueError"):
+        failing.result(timeout=120)
+    assert not failing.proc.is_alive()
