@@ -18,7 +18,7 @@ Each row adds what the run did, counted from zero: the engine and device,
 the dataset's making seconds (0 when cached), window reads, the packed
 batches by (G, R, S, D, nc_cap, layout), the loop kernel's launches,
 lanes by placement and row route and launches by shape, the stage
-seconds, the peak RSS of the run's process, and the card's name and
+seconds, the peak RSS of the run's process (VmHWM), and the card's name and
 power limit (nvidia-smi) when the run was on one. Beside each row the
 JAX engine's record (the root ACCURACY_SCALE.json, read and never
 written) is printed as context.
@@ -69,6 +69,20 @@ def card_line():
     return out.strip().splitlines()[0]
 
 
+def peak_rss_mib():
+    """This process's peak resident set, MiB: VmHWM, the high-water mark of
+    its own address space. Not ru_maxrss: a process started by fork and
+    exec, as a spawned row is, inherits its parent's peak there."""
+    try:
+        with open("/proc/self/status") as f:
+            for line in f:
+                if line.startswith("VmHWM:"):
+                    return int(line.split()[1]) / 1024
+    except OSError:
+        pass
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1024
+
+
 def ready(device):
     """The card's context made and the kernels' library built and loaded
     before a run is timed: a spawned process starts with neither."""
@@ -111,7 +125,7 @@ def counted(run, device):
             shapes=[dict(G=g, R=r, S=s, D=d, nc_cap=nc, **v)
                     for (g, r, s, d, nc), v in sorted(loop.shapes.items())]),
         stages=stage_report(3),
-        peak_rss_mib=resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1024,
+        peak_rss_mib=peak_rss_mib(),
         card=card_line() if on_card else None)
 
 

@@ -10,7 +10,8 @@ accuracy_scale) on the CPU, on small sets:
   package's run_jobs_batched on coverage-derived jobs) does, and the
   tool's row tallies those decisions;
 - testing.Spawned, which makes the sets and runs each row in a process
-  of its own, returns the child's value and raises what it raised.
+  of its own, returns the child's value and raises what it raised, and a
+  row's peak RSS is its own process's, not its parent's.
 Each row runs in a spawned process of its own, with one thread and
 glibc's default heap thresholds (the environment below).
 Tolerance: exact.
@@ -112,3 +113,15 @@ def test_spawned_returns_and_raises():
     with pytest.raises(RuntimeError, match="ValueError"):
         failing.result(timeout=120)
     assert not failing.proc.is_alive()
+
+
+def test_row_peak_rss_is_its_own():
+    """A spawned row's peak RSS (tool.peak_rss_mib) leaves out its
+    parent's, which ru_maxrss carries across fork and exec."""
+    import resource
+    block = bytearray(1 << 30)
+    block[::4096] = b"x" * len(block[::4096])  # touch every page
+    del block
+    parent = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1024
+    child = testing.Spawned(tool.peak_rss_mib).result(timeout=120)
+    assert 0 < child < parent - 512
