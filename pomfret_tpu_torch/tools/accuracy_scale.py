@@ -18,8 +18,8 @@ Each row adds what the run did, counted from zero: the engine and device,
 the dataset's making seconds (0 when cached), window reads, the packed
 batches by (G, R, S, D, nc_cap, layout), the loop kernel's launches,
 lanes by placement and row route and launches by shape, the stage
-seconds, the peak RSS of the run's process (VmHWM), and the card's name and
-power limit (nvidia-smi) when the run was on one. Beside each row the
+seconds, the peak RSS of the run's process (VmHWM), and the card's name
+and power limit (nvidia-smi) when the run was on one. Beside each row the
 JAX engine's record (the root ACCURACY_SCALE.json, read and never
 written) is printed as context.
 
@@ -27,9 +27,9 @@ Datasets are made by testing.cached_dataset under <data-root>/.bench_data/
 (the key bench.py and tools/accuracy_scale.py use), each in a spawned
 process of its own. No row runs until every set is made, and each row
 runs in a spawned process of its own: its wall is taken on a host no
-maker shares, and its peak RSS is its own run's. Rows merge into --out, by default
-chiprun_out/accuracy_scale.json of the checkout; each report's .report.tsv
-stays beside it (accuracy_scale_cis_scale<N>.report.tsv,
+maker shares, and its peak RSS is its own run's. Rows merge into --out,
+by default chiprun_out/accuracy_scale.json of the checkout; each
+report's .report.tsv stays beside it (accuracy_scale_cis_scale<N>.report.tsv,
 accuracy_scale_noise<level>.report.tsv).
 
     python -m pomfret_tpu_torch.tools.accuracy_scale [--scale N]
