@@ -10,7 +10,12 @@
                                            # (C) in turns P C C P P C C P
     python3 chip_smoke.py --v3-lanes       # card, build and v3_loop at 1,
                                            # 2, 4 and 8 lanes a block
-    python3 chip_smoke.py --only-dense     # card, build and phase 10 only
+    python3 chip_smoke.py --only-dense     # card, build and phase 10 only,
+                                           # with its malloc A/B (no
+                                           # result line)
+    python3 chip_smoke.py --only-scale N   # card, build, the BENCH_SCALE=N
+                                           # set made, methphase cuda ==
+                                           # torch on it and phase 11 on it
                                            # (no result line)
 
 Phases, each printing one line:
@@ -61,7 +66,9 @@ Phases, each printing one line:
     1536) by bulk copy and by the warp's loads;
  4a. warmup: `pomfret-tpu-torch warmup --engine cuda` on the 200-gap scale
     dataset of bench.py (generated once into .bench_data/ by the port's
-    testing.py): one loop-kernel launch at max_iters=0 per packed shape;
+    testing.make_datasets, with phase 10's set, every chromosome of both
+    in one pool of spawned workers, after phase 3b and before any timed
+    phase): one loop-kernel launch at max_iters=0 per packed shape;
     prints its time and the shape count;
  4. main path: `pomfret-tpu-torch methphase --engine cuda` on that dataset,
     then
@@ -115,13 +122,16 @@ Phases, each printing one line:
     production_mesh too; prints the times.
  10. dense: the dense ~220x chromosome of 36 blocks at noise 0.05
     (testing.dense_params, the first row of the JAX record's
-    noise_ramp_dense; made in a spawned process while the scale dataset
-    is made, after phase 3b, and waited for before phase 4a, so that no
-    timed phase shares the host with it; its making time printed apart):
+    noise_ramp_dense; made with the scale dataset before phase 4a, its
+    making time printed apart):
     `report --chunk-size 50000 --chunk-stride 15000` and then
     `methphase`, each --engine cuda against --engine torch --device cuda
     and each in a spawned process of its own (its peak RSS is its
-    own run's), .report.tsv and .mp.vcf/.mp.gtf byte-identical; no
+    own run's), .report.tsv and .mp.vcf/.mp.gtf byte-identical; under
+    --only-dense, then the malloc A/B, each run in a process of its own:
+    --engine cuda twice under POMFRET_NO_MALLOC_TUNE=1 (glibc's own mmap
+    and trim thresholds) and once more as is, outputs byte-identical,
+    wall, wl_source and peak RSS of each side; no
     switch, methphase cis or fail only; the correct/switch/fail counts
     beside the JAX record's (printed, not checked); one more warm
     methphase under torch.profiler (device busy time, idle share); fails
@@ -134,7 +144,12 @@ Phases, each printing one line:
     oracle's wall); the loop kernel alone on methphase's own batch (every
     gap packed as methphase packs them, checked to be the shape it
     packed), == loop_plain, its device time, iterations, loop_bound and
-    its launches at that shape in the runs above.
+    its launches at that shape in the runs above;
+ 11. profile tools: python -m pomfret_tpu_torch.tools.profile_loader and
+    then profile_pack on the 200-gap set, each in a spawned process of
+    its own; the loader's window reads must equal phase 4's methphase's;
+    prints their stage seconds and peak RSS (records in chiprun_out/
+    profile_loader.json and profile_pack.json).
 The script then checks that no jax, pomfret_tpu or pomfret_tpu.* module
 was loaded. Then a JSON line of the kernels (with each one's bound: the
 larger of its bytes over the HBM rate and its operations over the f32
@@ -987,6 +1002,8 @@ def phase_mesh(dev, base, p_c):
 # phase 10: the dense chromosome at the first noise level of the JAX
 # record's noise_ramp_dense
 DENSE_NOISE = 0.05
+# a run without utils/malloc_tune.py's 1 GiB mmap and trim thresholds
+NO_TUNE = (("POMFRET_NO_MALLOC_TUNE", "1"),)
 
 
 def is_dense(s):
@@ -998,21 +1015,26 @@ def shape_key(s):
     return s["G"], s["R"], s["S"], s["D"], s["nc_cap"]
 
 
-def _dense_run(dev, cmd, args):
+def _run_alone(dev, cmd, args):
     from pomfret_tpu_torch.tools.accuracy_scale import counted
+    from pomfret_tpu_torch.utils import malloc_tune
     zero_counts()
     rc, wall, row = counted(lambda: cli_main([cmd, *args]), dev)
     check(rc == 0, f"{cmd} {' '.join(args)} exited {rc}")
-    return dict(row, wall_s=wall, kernel_launches=read_counts())
+    return dict(row, wall_s=wall, kernel_launches=read_counts(),
+                malloc_tuned=malloc_tune._done)
 
 
-def dense_run(dev, cmd, args):
+def run_alone(dev, cmd, args, env=(), timeout=600):
     """One CLI run in a spawned process of its own (its peak RSS is the
-    run's own), counted from zero there (tools.accuracy_scale.counted): its
-    wall, stage seconds, window reads, packed shapes, loop-kernel lanes
-    and shapes, peak RSS, and each kernel's launches."""
+    run's own), with `env` added to its environment, counted from zero
+    there (tools.accuracy_scale.counted): its wall, stage seconds, window
+    reads, packed shapes, loop-kernel lanes and shapes, peak RSS, each
+    kernel's launches, and whether utils/malloc_tune.py's thresholds were
+    set."""
     from pomfret_tpu_torch.testing import Spawned
-    return Spawned(_dense_run, dev, cmd, args).result(timeout=600)
+    return Spawned(_run_alone, dev, cmd, args, env=env).result(
+        timeout=timeout)
 
 
 def dense_batch(bam_path, vcf, dev):
@@ -1048,16 +1070,19 @@ def dense_batch(bam_path, vcf, dev):
             "dense" if batch.blk is None else "runs")
 
 
-def phase_dense(dev, made, work):
+def phase_dense(dev, made, work, malloc_ab=False):
     """Phase 10 on the dense chromosome (`made`: bam, vcf, gaps, making
     seconds): report, then methphase, --engine cuda against --engine torch
-    on the card, each run in a process of its own, byte for byte; no
-    switch, methphase cis or fail only; a batch of the dense buckets
-    packed and run by the loop kernel with its count table in global
-    memory; run_gap cuda == the host oracle on the first gap; the loop
-    kernel alone on methphase's own batch, == loop_plain, with its device
-    time, iterations, bound and its launches at that shape in the runs; a
-    warm methphase under torch.profiler."""
+    on the card, each run in a process of its own, byte for byte; with
+    malloc_ab (--only-dense) the malloc A/B too (--engine cuda as is,
+    twice without utils/malloc_tune.py's thresholds, as is again; outputs
+    equal, walls, wl_source, peak RSS); no switch, methphase cis or fail
+    only; a batch of the dense buckets packed and run by the loop kernel
+    with its count table in global memory; run_gap cuda == the host
+    oracle on the first gap; the loop kernel alone on methphase's own
+    batch, == loop_plain, with its device time, iterations, bound and its
+    launches at that shape in the runs; a warm methphase under
+    torch.profiler."""
     import torch
     from pomfret_tpu_torch.kernels import engine_fused3 as f3
     from pomfret_tpu_torch.tools.accuracy_scale import report_counts
@@ -1070,17 +1095,37 @@ def phase_dense(dev, made, work):
             ("report", ["--chunk-size", "50000", "--chunk-stride", "15000"],
              (".report.tsv",)),
             ("methphase", [], (".mp.vcf", ".mp.gtf"))):
-        for eng in (["cuda"], ["torch", "--device", "cuda"]):
-            runs[f"{cmd}_{eng[0]}"] = dense_run(dev, cmd, [
-                "-o", os.path.join(d, f"{cmd}_{eng[0]}"), "--engine", *eng,
-                *args, "--vcf", vcf, bam])
-        same_outputs(os.path.join(d, f"{cmd}_cuda"),
-                     os.path.join(d, f"{cmd}_torch"), exts)
+        # the malloc A/B in turns after the engines: as-is (cuda), no
+        # thresholds twice, as-is again
+        for name, eng, env in (
+                ("cuda", ["cuda"], ()),
+                ("torch", ["torch", "--device", "cuda"], ()),
+                *((("cuda_untuned", ["cuda"], NO_TUNE),
+                   ("cuda_untuned2", ["cuda"], NO_TUNE),
+                   ("cuda2", ["cuda"], ())) if malloc_ab else ())):
+            runs[f"{cmd}_{name}"] = run_alone(dev, cmd, [
+                "-o", os.path.join(d, f"{cmd}_{name}"), "--engine", *eng,
+                *args, "--vcf", vcf, bam], env)
+            same_outputs(os.path.join(d, f"{cmd}_cuda"),
+                         os.path.join(d, f"{cmd}_{name}"), exts)
+            check(runs[f"{cmd}_{name}"]["malloc_tuned"] == (not env),
+                  f"{cmd} {name}: malloc thresholds set "
+                  f"{runs[f'{cmd}_{name}']['malloc_tuned']}")
     counts, _ = report_counts(os.path.join(d, "report_cuda.report.tsv"))
     check(counts["switch"] == 0, f"dense report: {counts}")
     dec = decisions(os.path.join(d, "methphase_cuda"))
     check(set(dec) <= {0, -1} and 0 in dec,
           f"dense methphase decisions on an all-cis set: {dec}")
+
+    def side(cmd, names):
+        got = [runs[f"{cmd}_{n}"] for n in names]
+        return dict(wall_s=[r["wall_s"] for r in got],
+                    wl_source=[r["stages"].get("wl_source", 0.0)
+                               for r in got],
+                    peak_rss_mib=[r["peak_rss_mib"] for r in got])
+    ab = {cmd: dict(tuned=side(cmd, ("cuda", "cuda2")),
+                    untuned=side(cmd, ("cuda_untuned", "cuda_untuned2")))
+          for cmd in ("report", "methphase")} if malloc_ab else {}
     cuda = [runs["report_cuda"], runs["methphase_cuda"]]
     packed = [s for r in cuda for s in r["packed_shapes"] if is_dense(s)]
     launched = [s for r in cuda for s in r["loop_kernel"]["shapes"]
@@ -1120,9 +1165,118 @@ def phase_dense(dev, made, work):
                   plain_ms=cuda_ms(lambda: f3.loop_plain(*t, **kw), 1),
                   **loop_bound(t, need, sk, D))
     return dict(dataset_s=made_s, gaps=n_gaps, runs=runs,
-                report_counts=counts,
+                malloc_ab=ab, report_counts=counts,
                 methphase_decisions={k: dec.count(k) for k in (0, 1, -1)},
                 profile=prof, run_gap=rg, kernel=kernel)
+
+
+def say_run(phase, name, r, card):
+    """One run_alone run's line."""
+    say(phase, f"{name}: wall {r['wall_s']:.2f} s, "
+        f"{r['window_reads']} window reads, peak RSS "
+        f"{r['peak_rss_mib']:.0f} MiB, loop-kernel launches "
+        f"{r['kernel_launches']['loop_kernel']}, packed "
+        + ", ".join(f"{s['batches']} x ({s['G']},{s['R']},{s['S']}) "
+                    f"D={s['D']} nc={s['nc_cap']} {s['layout']}"
+                    for s in r["packed_shapes"])
+        + f"; loop kernel lanes by placement "
+        f"{r['loop_kernel']['placements']}, by row route "
+        f"{r['loop_kernel']['row_routes']}, shapes "
+        + ", ".join(f"({s['G']},{s['R']},{s['S']}) D={s['D']} "
+                    f"nc={s['nc_cap']} x{s['launches']} shared "
+                    f"{'+'.join(s['shared']) or 'none'}"
+                    for s in r["loop_kernel"]["shapes"])
+        + f"; stages {r['stages']}; {card}")
+
+
+def _profile_tool(name, argv, out):
+    import importlib
+    mod = importlib.import_module(f"pomfret_tpu_torch.tools.{name}")
+    check(mod.main([*argv, "--out", out]) == 0, f"{name} {argv} failed")
+    with open(out) as f:
+        return json.load(f)
+
+
+def phase_profile_tools(set_argv, reads, tag=""):
+    """Phase 11: tools.profile_loader, then tools.profile_pack, on the
+    cached set that `set_argv` names (e.g. --scale 1), each in a spawned
+    process of its own (their peak RSS their own); the loader's window reads
+    must equal `reads`, methphase's on the same set. Their records go to
+    chiprun_out/<tool><tag>.json."""
+    from pomfret_tpu_torch.testing import Spawned
+    got = {}
+    for name in ("profile_loader", "profile_pack"):
+        out = os.path.join(ROOT, "chiprun_out", f"{name}{tag}.json")
+        got[name] = Spawned(_profile_tool, name, set_argv,
+                            out).result(timeout=1800)
+    check(got["profile_loader"]["reads"] == reads,
+          f"profile_loader loaded {got['profile_loader']['reads']} window "
+          f"reads, methphase {reads}")
+    return got
+
+
+def say_profile_tools(phase, pt, card):
+    lo, pk = pt["profile_loader"], pt["profile_pack"]
+    say(phase, f"profile_loader on {lo['windows']} gaps: wall "
+        f"{lo['wall_s']:.2f} s, {lo['reads']} window reads (== "
+        f"methphase's), {lo['us_per_read']:.1f} us/read; stages "
+        + ", ".join(f"{k} {v:.2f} s" for k, v in lo["stages_s"].items())
+        + f"; peak RSS {lo['peak_rss_mib']:.0f} MiB; profile_pack: "
+        f"{pk['groups']} groups, {pk['lanes']} lanes, loading "
+        f"{pk['load_stages_s']['load']:.2f} s, pack wall "
+        f"{pk['wall_s']:.2f} s ({pk['us_per_read']:.1f} us/read), peak RSS "
+        f"{pk['peak_rss_mib']:.0f} MiB; host cores {lo['host']['cores']}; "
+        f"{card}")
+
+
+def phase_scale(dev, scale, work, report):
+    """--only-scale: the BENCH_SCALE=scale set made through the pool (its
+    seconds and peak RSS by chromosome); methphase --engine cuda and
+    --engine torch --device cuda on it, each in a spawned process of its
+    own, .mp.vcf/.mp.gtf/.mp.tsv byte for byte; then both profile tools on
+    the set. Each step lands in chiprun_out/chip_smoke_scale.json as soon
+    as it is done."""
+    out = report["scale"] = dict(scale=scale, runs={})
+    ((bam, vcf, n_gaps, made_s),), made = make_sets([scale_spec(scale)])
+    out.update(gaps=n_gaps, dataset_s=made_s, making=made[0])
+    write_report(report, "chip_smoke_scale.json")
+    for name, eng in (("cuda", ["cuda"]),
+                      ("torch", ["torch", "--device", "cuda"])):
+        out["runs"][name] = run_alone(dev, "methphase", [
+            "-o", os.path.join(work, name), "--engine", *eng,
+            "--output-tsv", "--vcf", vcf, bam], timeout=3000)
+        write_report(report, "chip_smoke_scale.json")
+    dec = decisions(os.path.join(work, "cuda"))
+    out["decisions"] = {k: dec.count(k) for k in (0, 1, -1)}
+    same_outputs(os.path.join(work, "cuda"), os.path.join(work, "torch"),
+                 (".mp.vcf", ".mp.gtf", ".mp.tsv"))
+    out["cuda_equals_torch"] = True
+    write_report(report, "chip_smoke_scale.json")
+    check(out["runs"]["cuda"]["kernel_launches"]["loop_kernel"] > 0,
+          "the scale run launched no loop kernel")
+    out["profile_tools"] = phase_profile_tools(
+        ["--scale", str(scale), "--data-root", ROOT],
+        out["runs"]["cuda"]["window_reads"], f"_scale{scale}")
+    write_report(report, "chip_smoke_scale.json")
+    return out
+
+
+def say_scale(sc, card):
+    m = sc["making"]
+    say("scale", f"BENCH_SCALE={sc['scale']}: {sc['gaps']} gaps made in "
+        f"{sc['dataset_s']:.1f} s (0 when cached; the BAM, index and VCF "
+        f"written here in {m['write_s']:.1f} s, this process's RSS "
+        f"{m['parent_start_mib']:.0f} MiB at the start, "
+        f"{m['parent_peak_mib']:.0f} at its peak); by chromosome: "
+        + ", ".join(f"chr{i + 1} {c['reads']} reads {c['seconds']:.1f} s "
+                    f"peak RSS {c['peak_mib']:.0f} MiB"
+                    for i, c in enumerate(m["chroms"])) + f"; {card}")
+    say("scale", f"methphase --engine cuda == --engine torch --device "
+        f"cuda (.mp.vcf/.mp.gtf/.mp.tsv); decisions {sc['decisions']}; "
+        f"{card}")
+    for name, r in sc["runs"].items():
+        say_run("scale", name, r, card)
+    say_profile_tools("scale", sc["profile_tools"], card)
 
 
 def say_dense(dn, card):
@@ -1141,21 +1295,16 @@ def say_dense(dn, card):
         + f"; methphase cuda == torch (.mp.vcf/.mp.gtf), decisions "
         f"{dn['methphase_decisions']}; {card}")
     for name, r in dn["runs"].items():
-        say("dense", f"{name}: wall {r['wall_s']:.2f} s, "
-            f"{r['window_reads']} window reads, peak RSS "
-            f"{r['peak_rss_mib']:.0f} MiB, loop-kernel launches "
-            f"{r['kernel_launches']['loop_kernel']}, packed "
-            + ", ".join(f"{s['batches']} x ({s['G']},{s['R']},{s['S']}) "
-                        f"D={s['D']} nc={s['nc_cap']} {s['layout']}"
-                        for s in r["packed_shapes"])
-            + f"; loop kernel lanes by placement "
-            f"{r['loop_kernel']['placements']}, by row route "
-            f"{r['loop_kernel']['row_routes']}, shapes "
-            + ", ".join(f"({s['G']},{s['R']},{s['S']}) D={s['D']} "
-                        f"nc={s['nc_cap']} x{s['launches']} shared "
-                        f"{'+'.join(s['shared']) or 'none'}"
-                        for s in r["loop_kernel"]["shapes"])
-            + f"; stages {r['stages']}; {card}")
+        say_run("dense", name, r, card)
+    for cmd, ab in dn["malloc_ab"].items():
+        say("dense", f"{cmd} --engine cuda, malloc A/B in turns (as-is, "
+            "POMFRET_NO_MALLOC_TUNE=1 twice, as-is; outputs equal): "
+            + "; ".join(f"{side}: walls " + ", ".join(
+                f"{w:.2f}" for w in v["wall_s"]) + " s, wl_source "
+                + ", ".join(f"{w:.2f}" for w in v["wl_source"])
+                + " s, peak RSS " + ", ".join(f"{m:.0f}" for m in
+                                           v["peak_rss_mib"]) + " MiB"
+                for side, v in ab.items()) + f"; {card}")
     pr = dn["profile"]
     say("dense", f"warm methphase --engine cuda on the dense chromosome "
         f"under torch.profiler: wall {pr['wall_s']:.2f} s, device busy "
@@ -1186,19 +1335,26 @@ def scale_dataset():
     return cached_dataset(ROOT, scale_params(1), "scale.bam")[:3]
 
 
-def dense_dataset(beside=lambda: None):
-    """(bam, vcf, n_gaps, making seconds) of the dense chromosome, made in
-    a spawned process while beside() runs here; returns beside()'s result
-    too."""
-    from pomfret_tpu_torch.testing import (Spawned, cached_dataset,
-                                           dense_params)
-    maker = Spawned(cached_dataset, ROOT, dense_params(DENSE_NOISE),
-                    "dense_noise.bam")
-    try:
-        here = beside()
-        return maker.result(timeout=900), here
-    finally:
-        maker.stop()
+def scale_spec(scale):
+    from pomfret_tpu_torch.testing import scale_params
+    return scale_params(scale), "scale.bam", False
+
+
+def dense_spec():
+    from pomfret_tpu_torch.testing import dense_params
+    return dense_params(DENSE_NOISE), "dense_noise.bam", False
+
+
+def make_sets(specs):
+    """Each (params, bam name, trans_alternate) spec under .bench_data/,
+    made at once where missing (testing.make_datasets: every chromosome
+    in one pool of spawned workers), before any timed phase: [(bam, vcf,
+    gaps, making seconds)] and make_datasets' records (seconds and peak RSS
+    by chromosome)."""
+    from pomfret_tpu_torch.testing import make_datasets
+    made = make_datasets(ROOT, specs)
+    return [(m["bam"], m["vcf"], m["n_gaps"], m["seconds"])
+            for m in made], made
 
 
 def cli_main(argv):
@@ -1444,10 +1600,18 @@ def main(argv=()):
         f"{report['build_s']:.1f} s")
 
     if "--only-dense" in argv:  # phase 10 alone, no result line
+        (dense,), report["datasets"] = make_sets([dense_spec()])
         report["dense"] = dn = phase_dense(
-            dev, dense_dataset()[0], tempfile.mkdtemp(prefix="chip_smoke_"))
+            dev, dense, tempfile.mkdtemp(prefix="chip_smoke_"),
+            malloc_ab=True)
         say_dense(dn, card)
         write_report(report, "chip_smoke_dense.json")
+        return 0
+    if "--only-scale" in argv:  # a BENCH_SCALE=N set, no result line
+        scale = int(argv[argv.index("--only-scale") + 1])
+        sc = phase_scale(dev, scale, tempfile.mkdtemp(prefix="chip_smoke_"),
+                         report)
+        say_scale(sc, card)
         return 0
     if "--only-probes" in argv:  # phase 3b alone, for quick chip calls
         t0 = time.perf_counter()
@@ -1516,8 +1680,18 @@ def main(argv=()):
     t0 = time.perf_counter()
     # both sets made at once, and no phase after this one timed beside a
     # maker
-    dense, (bam, vcf, n_gaps) = dense_dataset(scale_dataset)
+    (scale, dense), report["datasets"] = make_sets([scale_spec(1),
+                                                    dense_spec()])
+    bam, vcf, n_gaps, _ = scale
     report["dataset_s"] = time.perf_counter() - t0
+    mk = report["datasets"][0]
+    say("data", f"the 200-gap and the dense set made at once in "
+        f"{report['dataset_s']:.1f} s (0 when cached): this process's RSS "
+        f"{mk['parent_start_mib']:.0f} MiB at the start, "
+        f"{mk['parent_peak_mib']:.0f} at its peak, its workers' peaks "
+        + ", ".join(
+            f"{c['peak_mib']:.0f}" for d in report["datasets"]
+            for c in d["chroms"]) + " MiB")
     p_c, p_c2, p_t = (os.path.join(work, n) for n in ("cuda", "cuda2",
                                                        "torch"))
     base = ["--vcf", vcf, bam]
@@ -1737,6 +1911,11 @@ def main(argv=()):
     # 10: the dense chromosome, each run counted from zero
     report["dense"] = dn = phase_dense(dev, dense, work)
     say_dense(dn, card)
+
+    # 11: the profile tools on the scale set, each in a process of its own
+    report["profile_tools"] = pt = phase_profile_tools(
+        ["--scale", "1", "--data-root", ROOT], reads)
+    say_profile_tools("profile-tools", pt, card)
 
     loaded = sorted(m for m in sys.modules
                     if m in ("jax", "pomfret_tpu")

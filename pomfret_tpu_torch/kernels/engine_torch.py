@@ -539,6 +539,34 @@ def _pick_load_threads(bam) -> int:
         max(1, min(4, (os.cpu_count() or 2) // 8))))
 
 
+def chrom_source(bam, job):
+    """The window-union columnar source of one job's chromosome
+    (core.readset.ChromReadSource), or None where the native loader is
+    absent: it decodes the union of the job's ±READBACK halos once, or the
+    whole chromosome where that union covers 98% of it."""
+    tid = bam.ref_id(job["ref_name"]) if hasattr(bam, "ref_id") else -1
+    if tid < 0:
+        return None
+    ref_len = bam.ref_lens[tid]
+    rg = job["rg"]
+    # -1: the per-window fetch queries [start-READBACK-1, end+READBACK)
+    halos = sorted(
+        (max(rg.starts[i] - READBACK - 1, 0),
+         min(rg.ends[i] + READBACK, ref_len))
+        for i in job["indices"])
+    regions = []
+    for lo, hi in halos:
+        if regions and lo <= regions[-1][1]:
+            regions[-1][1] = max(regions[-1][1], hi)
+        else:
+            regions.append([lo, hi])
+    if sum(hi - lo for lo, hi in regions) >= 0.98 * ref_len:
+        regions = None  # effectively the whole chromosome
+    from ..core.readset import ChromReadSource
+    src = ChromReadSource(bam, job["ref_name"], job["cfg"], regions=regions)
+    return src if src.ok else None
+
+
 def run_jobs_batched(st, bam, jobs, group: int = 0, n_permutations: int = 1,
                      *, engine: str, device, mesh=None):
     """Run many chromosomes' gap jobs through ONE device pipeline.
@@ -576,35 +604,9 @@ def run_jobs_batched(st, bam, jobs, group: int = 0, n_permutations: int = 1,
     src_state = {"ji": None, "src": None}  # producer-local, one job at a time
 
     def _chrom_source(ji):
-        """Window-union columnar source for job ji, or None: decodes the
-        union of the job's ±READBACK halos once."""
-        if src_state["ji"] == ji:
-            return src_state["src"]
-        src_state["ji"] = ji
-        src_state["src"] = None
-        job = jobs[ji]
-        tid = bam.ref_id(job["ref_name"]) if hasattr(bam, "ref_id") else -1
-        if tid < 0:
-            return None
-        ref_len = bam.ref_lens[tid]
-        rg = job["rg"]
-        # -1: the per-window fetch queries [start-READBACK-1, end+READBACK)
-        halos = sorted(
-            (max(rg.starts[i] - READBACK - 1, 0),
-             min(rg.ends[i] + READBACK, ref_len))
-            for i in job["indices"])
-        regions = []
-        for lo, hi in halos:
-            if regions and lo <= regions[-1][1]:
-                regions[-1][1] = max(regions[-1][1], hi)
-            else:
-                regions.append([lo, hi])
-        if sum(hi - lo for lo, hi in regions) >= 0.98 * ref_len:
-            regions = None  # effectively the whole chromosome
-        from ..core.readset import ChromReadSource
-        src = ChromReadSource(bam, job["ref_name"], job["cfg"],
-                              regions=regions)
-        src_state["src"] = src if src.ok else None
+        if src_state["ji"] != ji:
+            src_state["ji"] = ji
+            src_state["src"] = chrom_source(bam, jobs[ji])
         return src_state["src"]
 
     def _load_chunk(ji, chunk):

@@ -7,14 +7,17 @@ chip_smoke.py.
   genome is built from {A,T,G} plus explicit CpG dinucleotides so that
   EVERY C is a CpG C (MM delta encoding becomes exact and simple for both
   strands). Haplotypes differ in CpG methylation state and in SNPs (for
-  the varhaptag path).
+  the varhaptag path). make_datasets makes the scale and accuracy sets
+  with their chromosomes in parallel, byte for byte as the serial maker.
 - Randomized and crafted loop batches, the bench-shape batch and
   checked_step, for holding the kernels against their plain versions.
 - run_processes: one CLI command run by several processes of one gloo
-  process group on this host; Spawned: one call in a spawned process.
+  process group on this host; Spawned: one call in a process of its own;
+  peak_rss_mib: a process's own peak RSS.
 """
 from __future__ import annotations
 
+import bisect
 import gzip
 import json
 import os
@@ -237,9 +240,19 @@ class SynthRegion:
                    region: Optional[Tuple[int, int]] = None,
                    frac_clipped: float = 0.0,
                    frac_indel: float = 0.0) -> List[BamRecord]:
+        recs = list(self.iter_reads(tagged, hp_label_fn, region,
+                                    frac_clipped, frac_indel))
+        recs.sort(key=lambda r: r.pos)
+        return recs
+
+    def iter_reads(self, tagged: bool = True, hp_label_fn=None,
+                   region: Optional[Tuple[int, int]] = None,
+                   frac_clipped: float = 0.0, frac_indel: float = 0.0):
+        """make_reads' records one at a time, in the order they are drawn
+        (every hap-0 read, then every hap-1 read), before its sort by
+        position."""
         cfg = self.cfg
         lo, hi = region if region else (0, cfg.ref_len)
-        recs: List[BamRecord] = []
         k = 0
         for hap in (0, 1):
             start = lo + (cfg.read_stagger // 2) * hap
@@ -250,13 +263,11 @@ class SynthRegion:
                 indel = None
                 if self.rng.random() < frac_indel:
                     indel = "I" if self.rng.random() < 0.5 else "D"
-                recs.append(self.make_read(f"read_{hap}_{k}", start, hap,
-                                           reverse, tagged, hp_label,
-                                           softclip=clip, with_indel=indel))
+                yield self.make_read(f"read_{hap}_{k}", start, hap, reverse,
+                                     tagged, hp_label, softclip=clip,
+                                     with_indel=indel)
                 k += 1
                 start += cfg.read_stagger
-        recs.sort(key=lambda r: r.pos)
-        return recs
 
     def write_bam(self, path: str, recs: List[BamRecord]) -> None:
         with BamWriter(path, [self.cfg.chrom], [self.cfg.ref_len],
@@ -371,6 +382,318 @@ def make_two_chrom_scenario(tmpdir: str, cfg: Optional[SynthConfig] = None):
     return bam, vcf, truths
 
 
+_MARGIN = 5_000
+
+
+def _block_layout(n_blocks: int, block_len: int, gap_len: int):
+    """(ref_len, blocks) of make_multichrom_multigap_scenario, the same on
+    every chromosome: a 5 kb margin at each end and n_blocks blocks of
+    block_len between gaps of gap_len."""
+    ref_len = _MARGIN * 2 + n_blocks * block_len + (n_blocks - 1) * gap_len
+    blocks = []
+    p = _MARGIN
+    for _ in range(n_blocks):
+        blocks.append((p, p + block_len))
+        p += block_len + gap_len
+    return ref_len, blocks
+
+
+def _scenario_region(ci: int, ref_len: int, blocks, read_stagger: int,
+                     per_chrom) -> Tuple[SynthRegion, List[int]]:
+    """Chromosome ci's region (seed ci, per_chrom[ci]'s settings) and its
+    SNPs: one on the first 'A' of each 2 kb step inside each block,
+    alternating haplotypes."""
+    kw = dict(ref_len=ref_len, chrom=f"chr{ci + 1}", seed=ci,
+              read_stagger=read_stagger)
+    if per_chrom is not None:
+        kw.update(per_chrom[ci])
+    sr = SynthRegion(SynthConfig(**kw))
+    snp_pos = []
+    for lo, hi in blocks:
+        q = lo
+        while q < hi:
+            for r in range(q, min(q + 200, sr.cfg.ref_len)):
+                if sr.ref[r] == "A":
+                    snp_pos.append(r)
+                    break
+            q += 2_000
+    sr.add_snps(snp_pos, [i % 2 for i in range(len(snp_pos))])
+    return sr, snp_pos
+
+
+def _hp_labeller(blocks, trans_alternate: bool):
+    """make_reads' hp_label_fn under trans_alternate, else None: domain i+1
+    starts at block i's end (reads starting in a gap belong to the next
+    block, matching the two-block fixture's start >= gap[0] rule) and odd
+    domains swap the labels. All chromosomes share one block layout, so
+    one boundary list serves all."""
+    if not trans_alternate:
+        return None
+    domain_starts = [blocks[i][1] for i in range(len(blocks) - 1)]
+
+    def label(start, hap):
+        bi = bisect.bisect_right(domain_starts, start)
+        return ((1 - hap) + 1) if bi % 2 else (hap + 1)
+    return label
+
+
+class _Scenario:
+    """One set of make_multichrom_multigap_scenario: its regions and truths
+    (built here, in the calling process), its BAM written chromosome by
+    chromosome, then its index and VCF."""
+
+    def __init__(self, tmpdir, n_chroms=2, n_blocks=4, block_len=60_000,
+                 gap_len=30_000, read_stagger=700, per_chrom=None,
+                 bam_threads=1, bam_name="multichrom.bam",
+                 trans_alternate=False):
+        if per_chrom is not None:
+            n_chroms = len(per_chrom)
+        self.n_chroms = n_chroms
+        self.chrom_args = ((n_blocks, block_len, gap_len), read_stagger,
+                           per_chrom, trans_alternate)
+        self.ref_len, self.blocks = _block_layout(n_blocks, block_len,
+                                                  gap_len)
+        self.bam = os.path.join(tmpdir, bam_name)
+        self.vcf = os.path.join(tmpdir, "multichrom.vcf.gz")
+        self.parts = os.path.join(tmpdir, f".{bam_name}.parts")
+        self.bam_threads = bam_threads
+        self.trans_alternate = trans_alternate
+        self.regions = []
+        self.truths = []
+        self.w = None
+
+    def build_regions(self) -> None:
+        _, read_stagger, per_chrom, trans = self.chrom_args
+        n_gaps = len(self.blocks) - 1
+        for ci in range(self.n_chroms):
+            sr, snp_pos = _scenario_region(ci, self.ref_len, self.blocks,
+                                           read_stagger, per_chrom)
+            block_snps = [[s for s in snp_pos if lo <= s < hi]
+                          for lo, hi in self.blocks]
+            ps_ids = [bs[0] + 1 for bs in block_snps]
+            self.truths.append({
+                "blocks": list(self.blocks), "ps_ids": ps_ids, "region": sr,
+                "gaps": [(block_snps[i][-1] + 1, ps_ids[i + 1])
+                         for i in range(n_gaps)],
+                # with alternating flips every adjacent block pair disagrees
+                "expected_decisions": [1 if trans else 0] * n_gaps,
+            })
+            self.regions.append(sr)
+
+    def read_cost(self, ci: int) -> float:
+        """Chromosome ci's bases drawn: its reads times their length."""
+        _, read_stagger, per_chrom, _ = self.chrom_args
+        kw = dict(ref_len=self.ref_len, read_stagger=read_stagger)
+        if per_chrom is not None:
+            kw.update(per_chrom[ci])
+        c = SynthConfig(**kw)
+        return 2 * max(c.ref_len - c.read_len, 0) / c.read_stagger * c.read_len
+
+    def writer(self) -> BamWriter:
+        if self.w is None:
+            self.w = BamWriter(self.bam, [sr.cfg.chrom for sr in self.regions],
+                               [sr.cfg.ref_len for sr in self.regions],
+                               header_text="@HD\tVN:1.6\tSO:coordinate\n",
+                               threads=self.bam_threads,
+                               keep_index_info=True)
+        return self.w
+
+    def write_serial(self, ci: int) -> None:
+        """Chromosome ci's reads made here and written."""
+        w = self.writer()
+        for r in self.regions[ci].make_reads(
+                tagged=True, hp_label_fn=_hp_labeller(self.blocks,
+                                                      self.trans_alternate)):
+            r.refID = ci
+            r.qname = f"c{ci}_" + r.qname
+            w.write(r)
+
+    def write_part(self, ci: int, meta, chunk_bytes: int = 64 << 20) -> None:
+        """Chromosome ci's records from the part a worker made
+        (_make_chrom_part), in make_reads' order, then the part removed."""
+        import mmap
+        import zlib
+        w = self.writer()
+        part = os.path.join(self.parts, f"chr{ci}.part")
+        if meta:
+            with open(part, "rb") as f, mmap.mmap(
+                    f.fileno(), 0, access=mmap.ACCESS_READ) as mm:
+                buf, metas = bytearray(), []
+                for pos, endpos, off, n_z, n, unmapped in meta:
+                    metas.append((ci, pos, endpos, len(buf), n, unmapped))
+                    buf += zlib.decompress(mm[off:off + n_z])
+                    if len(buf) >= chunk_bytes:
+                        w.write_raw_records(buf, metas)
+                        buf, metas = bytearray(), []
+                if metas:
+                    w.write_raw_records(buf, metas)
+        os.remove(part)
+
+    def finish(self):
+        """The BAM closed and indexed, then the VCF: (bam, vcf, truths)."""
+        w = self.writer()
+        w.close()
+        w.build_index(n_ref=self.n_chroms)
+        lines = [
+            "##fileformat=VCFv4.2",
+            "#CHROM\tPOS\tID\tREF\tALT\tQUAL\tFILTER\tINFO\tFORMAT\tsample",
+        ]
+        for sr, t in zip(self.regions, self.truths):
+            for pos, ref, alt, hap_alt in sr.snps:
+                ps = None
+                flip = False
+                for bi, ((lo, hi), pid) in enumerate(zip(t["blocks"],
+                                                         t["ps_ids"])):
+                    if lo <= pos < hi:
+                        ps = pid
+                        flip = self.trans_alternate and bool(bi % 2)
+                        break
+                if ps is None:
+                    continue
+                a0, a1 = (1, 0) if hap_alt == 0 else (0, 1)
+                if flip:
+                    a0, a1 = a1, a0
+                lines.append(f"{sr.cfg.chrom}\t{pos + 1}\t.\t{ref}\t{alt}\t60"
+                             f"\tPASS\t.\tGT:PS\t{a0}|{a1}:{ps}")
+        with gzip.open(self.vcf, "wt") as f:
+            f.write("\n".join(lines) + "\n")
+        return self.bam, self.vcf, self.truths
+
+
+def _make_chrom_part(part: str, ci: int, layout, read_stagger: int,
+                     per_chrom, trans_alternate: bool):
+    """Chromosome ci's records, made in a worker as the serial maker makes
+    them (the same region, seed, SNPs and labels; make_read's draws
+    untouched): each encoded and deflated (zlib, level 1) into the file
+    `part` as it is drawn. Returns its records' (pos, endpos, offset in
+    part, deflated length, length, unmapped) in make_reads' order (a
+    stable sort by position), the seconds taken and the worker's peak RSS
+    (peak_rss_mib)."""
+    import zlib
+    from .io.bam import bam_endpos
+    from .io.bam_writer import encode_record
+    t0 = time.perf_counter()
+    ref_len, blocks = _block_layout(*layout)
+    sr, _ = _scenario_region(ci, ref_len, blocks, read_stagger, per_chrom)
+    meta = []
+    off = 0
+    with open(part, "wb") as f:
+        for r in sr.iter_reads(tagged=True, hp_label_fn=_hp_labeller(
+                blocks, trans_alternate)):
+            r.refID = ci
+            r.qname = f"c{ci}_" + r.qname
+            raw = encode_record(r)
+            z = zlib.compress(raw, 1)
+            f.write(z)
+            meta.append((r.pos, bam_endpos(r), off, len(z), len(raw),
+                         bool(r.flag & 4)))
+            off += len(z)
+    meta.sort(key=lambda m: m[0])
+    return dict(meta=meta, seconds=time.perf_counter() - t0,
+                peak_mib=peak_rss_mib())
+
+
+class _RssSampler:
+    """This process's resident set (VmRSS) read every `every` seconds on a
+    thread of its own while the `with` block runs; start_mib: the first
+    read, peak_mib: the largest. It sees a transient that lasts longer
+    than `every`, and works where /proc/self/status has no VmHWM."""
+
+    def __init__(self, every: float = 0.1):
+        import threading
+        self.every, self.peak_mib = every, 0.0
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+
+    def _sample(self) -> None:
+        self.peak_mib = max(self.peak_mib, proc_status_mib("VmRSS"))
+
+    def _run(self) -> None:
+        while not self._stop.wait(self.every):
+            self._sample()
+
+    def __enter__(self):
+        self._sample()
+        self.start_mib = self.peak_mib
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+        self._sample()
+
+
+def _make_scenarios(kws, procs: int):
+    """make_multichrom_multigap_scenario(**kw) for every kw of kws at once.
+    Every chromosome of every set goes to a worker of its own
+    (_make_chrom_part in a spawned process), at most procs at once, the
+    most bases first. Each set's regions, truths and VCF are made here;
+    its BAM is written here in chromosome order as the parts come in, so
+    its bytes, index and VCF are the serial maker's. A worker that fails
+    stops the others and raises here with its traceback. Returns for each
+    set dict(scenario=(bam, vcf, truths), seconds, write_s, chroms,
+    parent_start_mib, parent_peak_mib), chroms[ci] = dict(reads, seconds,
+    peak_mib) of its worker; this process's VmRSS as it started and its
+    largest while it made them all (_RssSampler), the same in every
+    set."""
+    import shutil
+    from multiprocessing.connection import wait
+    t0 = time.perf_counter()
+    sets = [_Scenario(**kw) for kw in kws]
+    todo = sorted(((si, ci) for si, s in enumerate(sets)
+                   for ci in range(s.n_chroms)),
+                  key=lambda t: -sets[t[0]].read_cost(t[1]))
+    for s in sets:
+        os.makedirs(s.parts, exist_ok=True)
+    out = [dict(scenario=None, seconds=None, write_s=0.0,
+                chroms=[None] * s.n_chroms) for s in sets]
+    metas = [dict() for _ in sets]  # parts made and not yet written
+    written = [0] * len(sets)
+    running = {}
+
+    def start():
+        while todo and len(running) < procs:
+            si, ci = todo.pop(0)
+            s = sets[si]
+            running[(si, ci)] = Spawned(
+                _make_chrom_part, os.path.join(s.parts, f"chr{ci}.part"), ci,
+                *s.chrom_args)
+
+    try:
+        with _RssSampler() as rss:
+            start()
+            for s in sets:  # while the first workers run
+                s.build_regions()
+            while running:
+                done = wait([sp._conn for sp in running.values()])
+                for key in [k for k, sp in running.items()
+                            if sp._conn in done]:
+                    si, ci = key
+                    got = running.pop(key).result()
+                    metas[si][ci] = got.pop("meta")
+                    out[si]["chroms"][ci] = dict(got,
+                                                 reads=len(metas[si][ci]))
+                    start()
+                    # each part whose predecessors are written, in order
+                    s, t1 = sets[si], time.perf_counter()
+                    while written[si] in metas[si]:
+                        s.write_part(written[si], metas[si].pop(written[si]))
+                        written[si] += 1
+                    if written[si] == s.n_chroms:
+                        out[si]["scenario"] = s.finish()
+                        out[si]["seconds"] = time.perf_counter() - t0
+                    out[si]["write_s"] += time.perf_counter() - t1
+    finally:
+        for sp in running.values():
+            sp.stop()
+        for s in sets:
+            shutil.rmtree(s.parts, ignore_errors=True)
+    for o in out:
+        o.update(parent_start_mib=rss.start_mib, parent_peak_mib=rss.peak_mib)
+    return out
+
+
 def make_multichrom_multigap_scenario(tmpdir: str, n_chroms: int = 2,
                                       n_blocks: int = 4,
                                       block_len: int = 60_000,
@@ -399,103 +722,19 @@ def make_multichrom_multigap_scenario(tmpdir: str, n_chroms: int = 2,
     blockjoin.c:5044-5084's 'swapped' verdict path). A block's phase
     domain starts at the previous block's end, so reads starting inside a
     gap carry the next block's labels, matching the two-block fixture's
-    `start >= gap[0]` rule. Truths gain "expected_decisions"."""
-    import os
-    if per_chrom is not None:
-        n_chroms = len(per_chrom)
-    margin = 5_000
-    ref_len = margin * 2 + n_blocks * block_len + (n_blocks - 1) * gap_len
-    regions, truths, cfgs = [], [], []
-    for ci in range(n_chroms):
-        kw = dict(ref_len=ref_len, chrom=f"chr{ci + 1}", seed=ci,
-                  read_stagger=read_stagger)
-        if per_chrom is not None:
-            kw.update(per_chrom[ci])
-        c = SynthConfig(**kw)
-        sr = SynthRegion(c)
-        blocks = []
-        p = margin
-        for _ in range(n_blocks):
-            blocks.append((p, p + block_len))
-            p += block_len + gap_len
-        snp_pos = []
-        for lo, hi in blocks:
-            q = lo
-            while q < hi:
-                for r in range(q, min(q + 200, c.ref_len)):
-                    if sr.ref[r] == "A":
-                        snp_pos.append(r)
-                        break
-                q += 2_000
-        sr.add_snps(snp_pos, [i % 2 for i in range(len(snp_pos))])
-        block_snps = [[s for s in snp_pos if lo <= s < hi] for lo, hi in blocks]
-        ps_ids = [bs[0] + 1 for bs in block_snps]
-        truths.append({
-            "blocks": blocks, "ps_ids": ps_ids, "region": sr,
-            "gaps": [(block_snps[i][-1] + 1, ps_ids[i + 1])
-                     for i in range(n_blocks - 1)],
-            # with alternating flips every adjacent block pair disagrees
-            "expected_decisions": [1 if trans_alternate else 0] *
-                                  (n_blocks - 1),
-        })
-        cfgs.append(c)
-        regions.append(sr)
+    `start >= gap[0]` rule. Truths gain "expected_decisions".
 
-    from .io.bam_writer import BamWriter
-    bam = os.path.join(tmpdir, bam_name)
-    w = BamWriter(bam, [c.chrom for c in cfgs],
-                  [c.ref_len for c in cfgs],
-                  header_text="@HD\tVN:1.6\tSO:coordinate\n",
-                  threads=bam_threads, keep_index_info=True)
-    # phase-domain boundaries for trans_alternate: domain i+1 starts at
-    # block i's end (reads starting in a gap belong to the next block,
-    # matching the two-block fixture's start >= gap[0] rule). All
-    # chromosomes share one block layout, so one boundary list serves all.
-    blocks0 = truths[0]["blocks"]
-    domain_starts = [blocks0[i][1] for i in range(n_blocks - 1)] \
-        if trans_alternate else None
-
-    def _hp_label_fn(start, hap):
-        import bisect
-        bi = bisect.bisect_right(domain_starts, start)
-        return ((1 - hap) + 1) if bi % 2 else (hap + 1)
-
-    for ci, sr in enumerate(regions):
-        recs = sr.make_reads(tagged=True,
-                             hp_label_fn=_hp_label_fn if trans_alternate
-                             else None)
-        for r in recs:
-            r.refID = ci
-            r.qname = f"c{ci}_" + r.qname
-            w.write(r)
-    w.close()
-    w.build_index(n_ref=n_chroms)
-
-    vcf = os.path.join(tmpdir, "multichrom.vcf.gz")
-    lines = [
-        "##fileformat=VCFv4.2",
-        "#CHROM\tPOS\tID\tREF\tALT\tQUAL\tFILTER\tINFO\tFORMAT\tsample",
-    ]
-    for ci, (sr, t) in enumerate(zip(regions, truths)):
-        for pos, ref, alt, hap_alt in sr.snps:
-            ps = None
-            flip = False
-            for bi, ((lo, hi), pid) in enumerate(zip(t["blocks"],
-                                                     t["ps_ids"])):
-                if lo <= pos < hi:
-                    ps = pid
-                    flip = trans_alternate and bool(bi % 2)
-                    break
-            if ps is None:
-                continue
-            a0, a1 = (1, 0) if hap_alt == 0 else (0, 1)
-            if flip:
-                a0, a1 = a1, a0
-            lines.append(f"{cfgs[ci].chrom}\t{pos + 1}\t.\t{ref}\t{alt}\t60"
-                         f"\tPASS\t.\tGT:PS\t{a0}|{a1}:{ps}")
-    with gzip.open(vcf, "wt") as f:
-        f.write("\n".join(lines) + "\n")
-    return bam, vcf, truths
+    make_datasets makes the same bytes and truths with the chromosomes in
+    parallel."""
+    s = _Scenario(tmpdir, n_chroms=n_chroms, n_blocks=n_blocks,
+                  block_len=block_len, gap_len=gap_len,
+                  read_stagger=read_stagger, per_chrom=per_chrom,
+                  bam_threads=bam_threads, bam_name=bam_name,
+                  trans_alternate=trans_alternate)
+    s.build_regions()
+    for ci in range(s.n_chroms):
+        s.write_serial(ci)
+    return s.finish()
 
 
 # The accuracy and scale datasets, as the JAX package's bench.py
@@ -549,27 +788,114 @@ def dataset_key(params: dict) -> str:
                         .encode()).hexdigest()[:12]
 
 
+def make_datasets(root: str, specs):
+    """Every dataset of `specs`, each a (params, bam name, trans_alternate)
+    triple, under <root>/.bench_data/<dataset_key(params)>/: those whose
+    BAM, index or VCF is missing are made at once, every chromosome of
+    every set dealt to one pool of spawned workers, as many at once as
+    this host has cores, the most bases first; each set's BAM is written
+    in this process, in chromosome order, as its chromosomes come in. The
+    pool's workers are processes of this one, which must not be a daemon
+    (a testing.Spawned child is one). For each spec a dict: bam, vcf,
+    n_gaps, seconds (from the start of this call to the set's VCF; 0 when
+    cached), write_s (this process's writing of the BAM, index and VCF),
+    chroms (for each chromosome of a made set: its reads, its worker's
+    seconds and peak RSS in MiB), parent_start_mib and parent_peak_mib
+    (this process's resident set as it started making and its largest
+    while it made the sets, MiB; 0 when cached)."""
+    made, todo, kws = [], {}, []
+    for params, bam_name, trans_alternate in specs:
+        d = os.path.join(root, ".bench_data", dataset_key(params))
+        bam = os.path.join(d, bam_name)
+        vcf = os.path.join(d, "multichrom.vcf.gz")
+        made.append(dict(bam=bam, vcf=vcf, seconds=0.0, write_s=0.0,
+                         chroms=[], parent_start_mib=0.0,
+                         parent_peak_mib=0.0, n_gaps=len(params["per_chrom"])
+                         * (params["n_blocks"] - 1)))
+        if bam in todo or all(os.path.exists(p)
+                              for p in (bam, vcf, bam + ".bai")):
+            continue
+        os.makedirs(d, exist_ok=True)
+        todo[bam] = len(kws)
+        kws.append(dict(
+            tmpdir=d, n_blocks=params["n_blocks"],
+            block_len=params["block_len"], gap_len=params["gap_len"],
+            per_chrom=params["per_chrom"],
+            bam_threads=max(2, os.cpu_count() or 2), bam_name=bam_name,
+            trans_alternate=trans_alternate))
+    if kws:
+        sets = _make_scenarios(kws, os.cpu_count() or 1)
+        for m in made:
+            if m["bam"] in todo:
+                got = sets[todo[m["bam"]]]
+                m.update((k, got[k]) for k in (
+                    "seconds", "write_s", "chroms", "parent_start_mib",
+                    "parent_peak_mib"))
+    return made
+
+
 def cached_dataset(root: str, params: dict, bam_name: str,
                    trans_alternate: bool = False):
     """(bam, vcf, n_gaps, seconds spent making it) of the dataset `params`
-    under <root>/.bench_data/<dataset_key(params)>/, made there first if
-    the BAM, its index or the VCF is missing (0 seconds when cached)."""
-    d = os.path.join(root, ".bench_data", dataset_key(params))
-    bam = os.path.join(d, bam_name)
-    vcf = os.path.join(d, "multichrom.vcf.gz")
-    t0 = time.perf_counter()
-    if not all(os.path.exists(p) for p in (bam, vcf, bam + ".bai")):
-        os.makedirs(d, exist_ok=True)
-        make_multichrom_multigap_scenario(
-            d, n_blocks=params["n_blocks"], block_len=params["block_len"],
-            gap_len=params["gap_len"], per_chrom=params["per_chrom"],
-            bam_threads=max(2, os.cpu_count() or 2), bam_name=bam_name,
-            trans_alternate=trans_alternate)
-    n_gaps = len(params["per_chrom"]) * (params["n_blocks"] - 1)
-    return bam, vcf, n_gaps, time.perf_counter() - t0
+    under <root>/.bench_data/<dataset_key(params)>/, made there first
+    (make_datasets) if the BAM, its index or the VCF is missing (0 seconds
+    when cached)."""
+    m, = make_datasets(root, [(params, bam_name, trans_alternate)])
+    return m["bam"], m["vcf"], m["n_gaps"], m["seconds"]
 
 
-def _spawned_main(conn, fn, args):
+def proc_status_mib(field: str, status: str = "/proc/self/status") -> float:
+    """A memory field of this process's `status` file (VmRSS: the resident
+    set now; VmHWM: its peak), in MiB. Raises where the file or the field
+    is missing."""
+    with open(status) as f:
+        for line in f:
+            if line.startswith(field + ":"):
+                return int(line.split()[1]) / 1024
+    raise RuntimeError(f"{status} has no {field}")
+
+
+def _inherited_peak_mib() -> float:
+    """ru_maxrss at this module's import where it stands above the
+    resident set then, else 0 (MiB): the peak that a process started by
+    fork and exec carries from its parent."""
+    import resource
+    peak = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1024
+    try:
+        rss = proc_status_mib("VmRSS")
+    except (OSError, RuntimeError):
+        return peak
+    return peak if peak > rss + 64 else 0.0
+
+
+_INHERITED_PEAK_MIB = _inherited_peak_mib()
+
+
+def peak_rss_mib(status: str = "/proc/self/status") -> float:
+    """This process's own peak resident set, MiB: VmHWM, where `status`
+    has it. Where it has none (the card host's kernel reports VmSize,
+    VmRSS and VmData only), ru_maxrss, but only where it stands above the
+    peak this process inherited: a process started by fork and exec from
+    a large one (multiprocessing's spawn) starts there at its parent's
+    peak, one forked from a small one (Spawned's forkserver) at that
+    one's ~20 MiB. Raises otherwise."""
+    import resource
+    try:
+        return proc_status_mib("VmHWM", status)
+    except (OSError, RuntimeError):
+        pass
+    peak = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1024
+    if peak <= _INHERITED_PEAK_MIB:
+        raise RuntimeError(
+            f"{status} has no VmHWM, and ru_maxrss ({peak:.0f} MiB) is no "
+            f"more than the peak this process inherited "
+            f"({_INHERITED_PEAK_MIB:.0f} MiB)")
+    return peak
+
+
+def _spawned_main(conn, fn, args, env):
+    os.environ.clear()
+    os.environ.update(env)
     try:
         out = ("ok", fn(*args))
     except BaseException:
@@ -580,20 +906,27 @@ def _spawned_main(conn, fn, args):
 
 
 class Spawned:
-    """fn(*args) in a spawned process of its own, started at once: a
-    dataset maker (cached_dataset) beside other work, or a run whose peak
-    RSS (ru_maxrss) must be its own. result() waits for what fn returned
-    (a RuntimeError with the child's traceback where it raised or died);
-    stop() kills the child if it still runs. The child is a daemon: it
-    starts no process of its own, and it is stopped when its parent
-    exits."""
+    """fn(*args) in a process of its own, started at once, with this
+    process's environment as it is now and `env` (pairs) on top: one
+    chromosome's worker of make_datasets' pool, or a run whose peak RSS
+    must be its own. The child is forked from multiprocessing's
+    forkserver, a small process that imports nothing heavy and touches no
+    device, so the child's ru_maxrss starts at that server's ~20 MiB, not
+    at this process's peak (peak_rss_mib), and it may use a GPU. The
+    server keeps the environment it started with, so the child's is sent
+    with it. result() waits for what fn
+    returned (a RuntimeError with the child's traceback where it raised
+    or died); stop() kills the child if it still runs. The child is a
+    daemon: it can start no process of its own, and it is stopped when
+    its parent exits."""
 
-    def __init__(self, fn, *args):
+    def __init__(self, fn, *args, env=()):
         import multiprocessing
-        ctx = multiprocessing.get_context("spawn")
+        ctx = multiprocessing.get_context("forkserver")
         self._conn, child = ctx.Pipe(duplex=False)
-        self.proc = ctx.Process(target=_spawned_main, args=(child, fn, args),
-                                daemon=True)
+        self.proc = ctx.Process(
+            target=_spawned_main,
+            args=(child, fn, args, {**os.environ, **dict(env)}), daemon=True)
         self.proc.start()
         child.close()
         self._out = None

@@ -18,14 +18,16 @@ Each row adds what the run did, counted from zero: the engine and device,
 the dataset's making seconds (0 when cached), window reads, the packed
 batches by (G, R, S, D, nc_cap, layout), the loop kernel's launches,
 lanes by placement and row route and launches by shape, the stage
-seconds, the peak RSS of the run's process (VmHWM), and the card's name
+seconds, the peak RSS of the run's process (VmHWM, or ru_maxrss where
+the kernel has no VmHWM: testing.peak_rss_mib), and the card's name
 and power limit (nvidia-smi) when the run was on one. Beside each row the
 JAX engine's record (the root ACCURACY_SCALE.json, read and never
 written) is printed as context.
 
-Datasets are made by testing.cached_dataset under <data-root>/.bench_data/
-(the key bench.py and tools/accuracy_scale.py use), each in a spawned
-process of its own. No row runs until every set is made, and each row
+Datasets are made by testing.make_datasets under <data-root>/.bench_data/
+(the key bench.py and tools/accuracy_scale.py use), all at once, their
+chromosomes in one pool of spawned workers. No row runs until every set
+is made, and each row
 runs in a spawned process of its own: its wall is taken on a host no
 maker shares, and its peak RSS is its own run's. Rows merge into --out,
 by default chiprun_out/accuracy_scale.json of the checkout; each
@@ -46,7 +48,6 @@ from __future__ import annotations
 import argparse
 import json
 import os
-import resource
 import subprocess
 import sys
 import time
@@ -67,20 +68,6 @@ def card_line():
     except (OSError, subprocess.SubprocessError):
         return None
     return out.strip().splitlines()[0]
-
-
-def peak_rss_mib():
-    """This process's peak resident set, MiB: VmHWM, the high-water mark of
-    its own address space. Not ru_maxrss: a process started by fork and
-    exec, as a spawned row is, inherits its parent's peak there."""
-    try:
-        with open("/proc/self/status") as f:
-            for line in f:
-                if line.startswith("VmHWM:"):
-                    return int(line.split()[1]) / 1024
-    except OSError:
-        pass
-    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1024
 
 
 def ready(device):
@@ -125,7 +112,7 @@ def counted(run, device):
             shapes=[dict(G=g, R=r, S=s, D=d, nc_cap=nc, **v)
                     for (g, r, s, d, nc), v in sorted(loop.shapes.items())]),
         stages=stage_report(3),
-        peak_rss_mib=peak_rss_mib(),
+        peak_rss_mib=testing.peak_rss_mib(),
         card=card_line() if on_card else None)
 
 
@@ -420,13 +407,9 @@ def main(argv=None) -> int:
     modes = [m for m in ("noise", "trans", "cis") if getattr(a, m)] or ["cis"]
     specs = dataset_specs(a, modes)
     # every dataset made (or found) at once, before any row runs
-    makers = {name: testing.Spawned(testing.cached_dataset, a.data_root,
-                                    *spec) for name, spec in specs.items()}
-    try:
-        data = {name: m.result() for name, m in makers.items()}
-    finally:
-        for m in makers.values():
-            m.stop()
+    made = testing.make_datasets(a.data_root, list(specs.values()))
+    data = {name: (m["bam"], m["vcf"], m["n_gaps"], m["seconds"])
+            for name, m in zip(specs, made)}
     for mode in modes:
         run = {"cis": main_cis, "trans": main_trans, "noise": main_noise}[mode]
         update, rows = run(a, specs, data, engine, device)

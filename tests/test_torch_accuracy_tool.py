@@ -9,9 +9,11 @@ accuracy_scale) on the CPU, on small sets:
   the JAX tool's logic (tools/accuracy_scale.py main_trans: the JAX
   package's run_jobs_batched on coverage-derived jobs) does, and the
   tool's row tallies those decisions;
-- testing.Spawned, which makes the sets and runs each row in a process
-  of its own, returns the child's value and raises what it raised, and a
-  row's peak RSS is its own process's, not its parent's.
+- testing.Spawned, which runs each row in a process of its own, returns
+  the child's value and raises what it raised, and a row's peak RSS is
+  its own process's, not its parent's: VmHWM, or where the status file
+  has none, ru_maxrss in a Spawned child and no peak at all in a process
+  that may carry its parent's.
 Each row runs in a spawned process of its own, with one thread and
 glibc's default heap thresholds (the environment below).
 Tolerance: exact.
@@ -105,9 +107,9 @@ def test_trans_decides_as_the_jax_tool(tmp_path, monkeypatch):
 
 
 def test_spawned_returns_and_raises():
-    """testing.Spawned, which makes the tool's sets and runs its rows: the
-    child's return value comes back; what it raised comes back as a
-    RuntimeError with the child's traceback."""
+    """testing.Spawned, which runs the tool's rows: the child's return
+    value comes back; what it raised comes back as a RuntimeError with
+    the child's traceback."""
     assert testing.Spawned(max, 3, 7).result(timeout=120) == 7
     failing = testing.Spawned(int, "not a number")
     with pytest.raises(RuntimeError, match="ValueError"):
@@ -116,12 +118,34 @@ def test_spawned_returns_and_raises():
 
 
 def test_row_peak_rss_is_its_own():
-    """A spawned row's peak RSS (tool.peak_rss_mib) leaves out its
+    """A spawned row's peak RSS (testing.peak_rss_mib) leaves out its
     parent's, which ru_maxrss carries across fork and exec."""
     import resource
     block = bytearray(1 << 30)
     block[::4096] = b"x" * len(block[::4096])  # touch every page
     del block
     parent = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1024
-    child = testing.Spawned(tool.peak_rss_mib).result(timeout=120)
+    child = testing.Spawned(testing.peak_rss_mib).result(timeout=120)
     assert 0 < child < parent - 512
+
+
+def test_peak_rss_without_vmhwm(tmp_path):
+    """Where the status file has no VmHWM (as on the card host), the peak
+    is ru_maxrss only where it cannot be a parent's: a Spawned child,
+    forked from the small forkserver, reads its own; a process spawned by
+    fork and exec from this one, which has touched 1 GiB, would read this
+    one's, and raises."""
+    import multiprocessing
+    status = tmp_path / "status"
+    status.write_text("Name:\tpython\nVmRSS:\t  2048 kB\n")
+    block = bytearray(1 << 30)
+    block[::4096] = b"x" * len(block[::4096])  # touch every page
+    del block
+    own = testing.Spawned(testing.peak_rss_mib, str(status)).result(
+        timeout=120)
+    assert 0 < own < 512
+    with multiprocessing.get_context("spawn").Pool(1) as pool:
+        with pytest.raises(RuntimeError, match="no VmHWM"):
+            pool.apply(testing.peak_rss_mib, (str(status),))
+    status.write_text("VmHWM:\t  3072 kB\nVmRSS:\t  2048 kB\n")
+    assert testing.peak_rss_mib(str(status)) == 3.0
