@@ -95,6 +95,25 @@ Phases, each printing one line:
  5c. `methphase --profile --engine cuda` on the trans scenario: the
     torch.profiler trace under <prefix>.profile/ holds a loop_kernel CUDA
     event, and the outputs equal the run without --profile;
+ 5d. parity rows: the runs of tests/test_torch_parity_*.py (testing.
+    PARITY_RUNS: --output-tsv --dbg --write-bam and --resume from a
+    manifest with a torn copy of its last line, -u -U --write-bam on an
+    untagged BAM, GTF input, the coverage estimated, CRAM input and
+    varhaptag on it, --n-permutations 3, 7 and 11 on a weak bridge,
+    where the vote decides, absurd HP values, soft clips and indels with
+    varhaptag, 3 blocks and --resume from a manifest whose last line is
+    cut in half, every gap trans, two chromosomes with -t 2 --write-bam
+    and --resume without chr2's line) on their
+    scenarios (testing.parity_scenario): `--engine cuda`, then `--engine
+    torch --device cuda`, each counted from zero (BAMs retagged by the
+    native library), while `--engine host` (BAMs retagged in Python)
+    runs in spawned processes; every step's
+    outputs (.mp.vcf/.mp.gtf/.mp.tsv/.mp.dbg.read2tag/
+    .mp.input_haptag.tsv, the BAMs' HP tags and bytes, .bai, varhaptag's
+    files and the manifest's records) equal across the three, and each
+    cuda run launches the loop kernel and decides on the card the gaps
+    its manifest gained, no more; prints each run's seconds by engine
+    and its launches;
  6. report: `pomfret-tpu-torch report --engine cuda` under gens 3 and 2
     against `report --engine host` on the cis two-block scenario;
     .report.tsv must be byte-identical;
@@ -862,6 +881,120 @@ def phase_host_subcommands(scenarios):
     same_outputs(os.path.join(d, "cram"), os.path.join(d, "cuda"),
                  (".mp.vcf", ".mp.gtf", ".mp.tsv"))
     return secs
+
+
+# the host runs of phase 5d, the longest first, and how many run at once
+PARITY_HOST_FIRST = ("perm11_bridge", "perm7_bridge", "perm3_bridge",
+                     "two_chrom")
+PARITY_PROCS = 6
+
+
+def phase_parity_rows(work):
+    """The CLI behaviours that tests/test_torch_parity_*.py hold against
+    the JAX package on the CPU (testing.PARITY_RUNS), on the card: each
+    run with --engine cuda and --engine torch --device cuda in this
+    process, counted from zero, and with --engine host (its BAMs retagged
+    in Python) in spawned processes meanwhile, at most PARITY_PROCS at
+    once, each with the environment as it was before the phase; the
+    scenarios are made the same way, each before its runs. Every step's
+    outputs must be equal across the engines, byte for byte, with the
+    cuda run's as the reference, and every cuda run must launch the loop
+    kernel and decide on the card exactly the gaps its manifest gained (a
+    resume none that its manifest held). Returns the phase's seconds and
+    each run's seconds, launches and gaps."""
+    from pomfret_tpu_torch.cli import main as port_main
+    from pomfret_tpu_torch.io.native import native_available
+    from pomfret_tpu_torch.parallel.batch import DISPATCH_STATS
+    from pomfret_tpu_torch.testing import (PARITY_RUNS, Spawned,
+                                           parity_diffs, parity_outputs,
+                                           parity_run, parity_scenario)
+    t0 = time.perf_counter()
+    # else the cuda and torch runs would retag in Python, as host does
+    check(native_available(), "parity rows: the native retag library is "
+          "missing")
+    root = os.path.join(work, "parity_rows")
+    names = list(PARITY_HOST_FIRST) + [n for n in PARITY_RUNS
+                                       if n not in PARITY_HOST_FIRST]
+    out = {"runs": {}}
+    environ = dict(os.environ)   # parity_run changes os.environ meanwhile
+    ex = concurrent.futures.ThreadPoolExecutor(PARITY_PROCS)
+    try:
+        def spawned(fn, *args):
+            # a run's scenario is made before it is queued: every maker
+            # has a thread before any run waits on one
+            return ex.submit(lambda: Spawned(
+                fn, *(a.result() if isinstance(a, concurrent.futures.Future)
+                      else a for a in args), environ=environ).result())
+
+        made = {s: spawned(parity_scenario, s, os.path.join(root, s))
+                for s in sorted({r.scenario for r in PARITY_RUNS.values()},
+                                key=lambda s: s != "cis")}
+        host = {n: spawned(parity_run, port_main, n,
+                           made[PARITY_RUNS[n].scenario],
+                           os.path.join(root, n, "host"), "host", None,
+                           False) for n in names}
+        for name in names:
+            fs = made[PARITY_RUNS[name].scenario].result()
+            got = {}
+            for engine, device in (("cuda", None), ("torch", "cuda")):
+                zero_counts()
+                g0 = DISPATCH_STATS["gaps_decided"]
+                r = parity_run(port_main, name, fs,
+                               os.path.join(root, name, engine), engine,
+                               device)
+                r["kernel_launches"] = read_counts()
+                r["gaps_decided"] = DISPATCH_STATS["gaps_decided"] - g0
+                got[engine] = r
+            got["host"] = host[name].result()
+            ref = got["cuda"]
+            gaps = len(parity_outputs(ref["prefixes"][0], name)["manifest"])
+            for engine, r in got.items():
+                check(r["resume_added"] == ref["resume_added"],
+                      f"{name}: resume added {r['resume_added']} manifest "
+                      f"lines with {engine}, {ref['resume_added']} with "
+                      "cuda")
+                for p, q in zip(ref["prefixes"], r["prefixes"]):
+                    diff = parity_diffs(parity_outputs(p, name),
+                                        parity_outputs(q, name))
+                    check(not diff, f"{name}: {q} and {p} differ in {diff}")
+                if engine == "cuda":
+                    n = r["kernel_launches"]["loop_kernel"]
+                    want = gaps + (r["resume_added"] or 0)
+                    check(n > 0 and r["gaps_decided"] == want,
+                          f"{name}: cuda decided {r['gaps_decided']} gaps "
+                          f"on the card ({want} wanted) in {n} loop-kernel "
+                          "launches")
+            out["runs"][name] = dict(gaps=gaps, **{
+                e: dict(seconds=r["seconds"],
+                        loop_kernel_launches=r.get(
+                            "kernel_launches", {}).get("loop_kernel"),
+                        gaps_decided=r.get("gaps_decided"),
+                        resume_added=r["resume_added"])
+                for e, r in got.items()})
+        out["scenarios_s"] = max(f.result()["seconds"]
+                                 for f in made.values())
+    finally:
+        ex.shutdown(wait=True, cancel_futures=True)
+    out["wall_s"] = time.perf_counter() - t0
+    return out
+
+
+def say_parity_rows(pr, card):
+    for name, r in pr["runs"].items():
+        c = r.get("cuda", {})
+        say("parity-rows", f"{name}: " + ", ".join(
+            f"{e} {sum(v['seconds'].values()):.2f} s"
+            for e, v in r.items() if e != "gaps")
+            + f"; {c.get('loop_kernel_launches')} loop-kernel launches, "
+            f"{c.get('gaps_decided')} gaps decided on the card of "
+            f"{r['gaps']}" + ("" if c.get("resume_added") is None else
+                              f" (the resume step added "
+                              f"{c['resume_added']})")
+            + f"; outputs identical; {card}")
+    say("parity-rows", f"{len(pr['runs'])} runs of the parity suite, every "
+        f"step's outputs == across the engines: {pr['wall_s']:.1f} s "
+        f"(the slowest scenario made in {pr['scenarios_s']:.1f} s); "
+        f"{card}")
 
 
 def phase_profile_flag(d, bam, vcf):
@@ -1822,6 +1955,10 @@ def main(argv=()):
         f"{pt['loop_kernel_events']} loop_kernel CUDA event(s) among "
         f"{pt['kernel_events']} kernel events; outputs == the run without "
         "--profile")
+
+    # 5d: the parity suite's runs, cuda == torch == host
+    report["parity_rows"] = prw = phase_parity_rows(work)
+    say_parity_rows(prw, card)
 
     d3 = os.path.join(work, "report")
     os.makedirs(d3)

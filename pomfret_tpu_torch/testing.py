@@ -18,6 +18,7 @@ chip_smoke.py.
 from __future__ import annotations
 
 import bisect
+import contextlib
 import gzip
 import json
 import os
@@ -907,7 +908,8 @@ def _spawned_main(conn, fn, args, env):
 
 class Spawned:
     """fn(*args) in a process of its own, started at once, with this
-    process's environment as it is now and `env` (pairs) on top: one
+    process's environment as it is now (or `environ`, a copy taken where
+    no thread was changing it) and `env` (pairs) on top: one
     chromosome's worker of make_datasets' pool, or a run whose peak RSS
     must be its own. The child is forked from multiprocessing's
     forkserver, a small process that imports nothing heavy and touches no
@@ -920,13 +922,15 @@ class Spawned:
     daemon: it can start no process of its own, and it is stopped when
     its parent exits."""
 
-    def __init__(self, fn, *args, env=()):
+    def __init__(self, fn, *args, env=(), environ=None):
         import multiprocessing
         ctx = multiprocessing.get_context("forkserver")
         self._conn, child = ctx.Pipe(duplex=False)
         self.proc = ctx.Process(
             target=_spawned_main,
-            args=(child, fn, args, {**os.environ, **dict(env)}), daemon=True)
+            args=(child, fn, args,
+                  {**(os.environ if environ is None else environ),
+                   **dict(env)}), daemon=True)
         self.proc.start()
         child.close()
         self._out = None
@@ -1592,3 +1596,283 @@ def run_processes(argv: Sequence[str], n_procs: int, *, env=None,
             out.close()
             err.close()
     return outs
+
+
+# ---------------------------------------------------------------------------
+# The parity runs: the CLI behaviours that the JAX package's tests check on
+# its own CLI (tests/test_manifest.py, test_flags.py, test_cli_extra.py,
+# test_native_retag.py, test_permutation.py, test_review_regressions.py,
+# test_realistic_reads.py, test_multiblock.py, test_two_chrom.py,
+# test_cram.py), each a scenario and the methphase flags that reach it.
+# tests/test_torch_parity_*.py run each through pomfret_tpu.cli and this
+# package's CLI on the CPU, chip_smoke.py with --engine cuda, torch and
+# host on the card; the outputs are compared byte for byte.
+
+def _two_block_files(tmpdir: str, name: str, cfg: SynthConfig, **read_kw):
+    """The two-block region of tests/test_realistic_reads.py and
+    test_review_regressions.py, built as they build it: SNPs on 'A' bases
+    every ~2 kb in [5k, 80k) and [120k, 195k), tagged reads (make_reads'
+    keywords); written as <name>.bam and a phased <name>.vcf.gz (a block's
+    PS its first SNP). Returns (bam, vcf, region)."""
+    sr = SynthRegion(cfg)
+    blocks = ((5_000, 80_000), (120_000, 195_000))
+    snp = []
+    for lo, hi in blocks:
+        p = lo
+        while p < hi:
+            for q in range(p, min(p + 200, cfg.ref_len)):
+                if sr.ref[q] == "A":
+                    snp.append(q)
+                    break
+            p += 2_000
+    sr.add_snps(snp, [i % 2 for i in range(len(snp))])
+    recs = sr.make_reads(tagged=True, **read_kw)
+    bam = os.path.join(tmpdir, f"{name}.bam")
+    vcf = os.path.join(tmpdir, f"{name}.vcf.gz")
+    sr.write_bam(bam, recs)
+    sr.write_vcf(vcf, lambda pos: next(
+        (min(q for q in snp if lo <= q < hi) + 1 for lo, hi in blocks
+         if lo <= pos < hi), None))
+    return bam, vcf, sr
+
+
+def make_messy_scenario(tmpdir: str):
+    """tests/test_realistic_reads.py's reads: 3% noise and no-calls, a 50 bp
+    soft clip on 40% of the reads and a CpG-neutral indel on half of them,
+    both strands. Returns (bam, vcf, region)."""
+    return _two_block_files(tmpdir, "messy",
+                            SynthConfig(noise=0.03, nocall=0.03, seed=5),
+                            frac_clipped=0.4, frac_indel=0.5)
+
+
+def make_weird_hp_scenario(tmpdir: str):
+    """tests/test_review_regressions.py's reads: every read starting in
+    one 700 bp step out of 7 carries the absurd HP:i:5, the others their
+    haplotype's tag. Returns (bam, vcf, region)."""
+    return _two_block_files(
+        tmpdir, "weird", SynthConfig(seed=13),
+        hp_label_fn=lambda start, hap: 5 if (start // 700) % 7 == 0
+        else hap + 1)
+
+
+def _write_blocks_gtf(path: str, sr: SynthRegion, blocks) -> None:
+    """The phase blocks of tests/test_cli_extra.py's GTF input: one exon
+    from each block's first to its last SNP."""
+    with open(path, "w") as f:
+        for lo, hi in blocks:
+            pos = [p for (p, *_) in sr.snps if lo <= p < hi]
+            s, e = pos[0] + 1, pos[-1] + 1
+            f.write(f'{sr.cfg.chrom}\tPhasing\texon\t{s}\t{e}\t.\t+\t.\t'
+                    f'gene_id "{s}"; transcript_id "{s}.1"\n')
+
+
+def _cis_files(d: str, cram: bool = False) -> dict:
+    bam, vcf, truth = make_two_block_scenario(d)
+    gtf = os.path.join(d, "blocks.gtf")
+    _write_blocks_gtf(gtf, truth["region"], truth["blocks"])
+    out = dict(bam=bam, vcf=vcf, gtf=gtf)
+    if cram:  # tests/test_cram.py's methphase input
+        from .io.cram_writer import bam_to_cram
+        out["cram"] = os.path.join(d, "synth.cram")
+        bam_to_cram(bam, out["cram"], embed_ref=True, records_per_slice=200)
+    return out
+
+
+def _files(made) -> dict:
+    return dict(bam=made[0], vcf=made[1])
+
+
+# name -> maker(dir) -> {"bam", "vcf"[, "gtf"][, "cram"]}
+PARITY_SCENARIOS = {
+    "cis": _cis_files,
+    "cram": lambda d: _cis_files(d, cram=True),
+    "untagged": lambda d: _files(make_two_block_scenario(d, tagged=False)),
+    "two_chrom": lambda d: _files(make_two_chrom_scenario(d)),
+    "multi_block": lambda d: _files(make_multi_block_scenario(d, n_blocks=3)),
+    "trans_alternate": lambda d: _files(make_multichrom_multigap_scenario(
+        d, n_chroms=1, n_blocks=3, trans_alternate=True)),
+    # tests/test_permutation.py:163's trans two-block scenario, with the
+    # gap's methylation wiped from 84 kb to its end: on that weak bridge
+    # the permutation runs disagree, so the vote decides (one run leaves
+    # the gap unjoined, 3 join it, 7 and 11 do not), where on the JAX
+    # tests' own permutation scenarios every n writes what one run writes
+    "perm_bridge": lambda d: _files(make_two_block_scenario(
+        d, trans=True, cfg=SynthConfig(noise=0.05, nocall=0.05, seed=13),
+        uninformative=(84_000, 120_000))),
+    "weird_hp": lambda d: _files(make_weird_hp_scenario(d)),
+    "messy": lambda d: _files(make_messy_scenario(d)),
+}
+
+
+@dataclass(frozen=True)
+class ParityRun:
+    """One methphase run of a parity scenario: `args` besides -o,
+    --engine, the phase blocks' file (`intervals`: --vcf or --gtf) and the
+    alignments (`alignments`: the scenario's BAM or CRAM); `exts` are the
+    outputs compared byte for byte (the manifest is compared as records).
+    `resume_drop`: then a --resume run into <prefix>_resumed from this
+    run's manifest without those chromosomes' lines, its last line then
+    torn by `resume_tear`: "copy" appends the first half of a copy of it
+    (a write cut short after the line was written whole), "cut" keeps
+    only its first half (the run killed while it wrote its last gap,
+    which the resume recomputes and appends to the fragment: both
+    packages glue the two into one line, ROADMAP queue 3 item 14).
+    `varhaptag`: also varhaptag on the alignments into <prefix>.vh.bam."""
+    scenario: str
+    args: Tuple[str, ...]
+    exts: Tuple[str, ...] = (".mp.vcf", ".mp.gtf", ".mp.tsv")
+    intervals: str = "vcf"
+    alignments: str = "bam"
+    resume_drop: Optional[Tuple[str, ...]] = None
+    resume_tear: str = ""
+    varhaptag: bool = False
+
+
+_BAM_EXTS = (".mp.bam", ".mp.bam.bai")
+_TSV = ("-c", "50", "--output-tsv")
+
+PARITY_RUNS = {
+    # --output-tsv --dbg --write-bam, then --resume on the whole manifest
+    # with a torn copy of its last line after it: nothing is recomputed
+    "flags": ParityRun("cis", ("-c", "50", "--output-tsv", "--dbg",
+                               "--write-bam"),
+                       (".mp.vcf", ".mp.gtf", ".mp.tsv", ".mp.dbg.read2tag",
+                        *_BAM_EXTS), resume_drop=(), resume_tear="copy"),
+    "untagged": ParityRun("untagged", ("-c", "50", "-u", "-U", "--write-bam"),
+                          (".mp.vcf", ".mp.gtf", ".mp.input_haptag.tsv",
+                           *_BAM_EXTS)),
+    "gtf": ParityRun("cis", _TSV, (".mp.gtf", ".mp.tsv"), intervals="gtf"),
+    "coverage": ParityRun("cis", ("--output-tsv",)),  # no -c: estimated
+    "cram": ParityRun("cram", _TSV, alignments="cram", varhaptag=True),
+    **{f"perm{n}_bridge": ParityRun("perm_bridge", ("-c", "50",
+                                                    "--n-permutations",
+                                                    str(n)),
+                                    (".mp.vcf", ".mp.gtf"))
+       for n in (11, 7, 3)},
+    "weird_hp": ParityRun("weird_hp", _TSV),
+    "messy": ParityRun("messy", _TSV, varhaptag=True),
+    # then --resume with only the first half of the last gap's line
+    "multi_block": ParityRun("multi_block", _TSV, resume_drop=(),
+                             resume_tear="cut"),
+    "trans_alternate": ParityRun("trans_alternate", _TSV),
+    # -t 2 --write-bam, then --resume without chr2's line
+    "two_chrom": ParityRun("two_chrom", ("-c", "50", "-t", "2",
+                                         "--write-bam"),
+                           (".mp.vcf", ".mp.gtf", *_BAM_EXTS),
+                           resume_drop=("chr2",)),
+}
+
+VARHAPTAG_EXTS = (".vh.bam", ".vh.bam.bai", ".vh.bam.varhaptag.tsv")
+
+
+def _set_environ(kv) -> None:
+    for k, v in kv.items():
+        if v is None:
+            os.environ.pop(k, None)
+        else:
+            os.environ[k] = v
+
+
+@contextlib.contextmanager
+def _environ(**kv):
+    """These variables set (None: unset) for a with-block. A thread that
+    copies os.environ meanwhile may see them half set: give what it
+    starts a copy taken before (Spawned's `environ`)."""
+    old = {k: os.environ.get(k) for k in kv}
+    _set_environ(kv)
+    try:
+        yield
+    finally:
+        _set_environ(old)
+
+
+def parity_run(main, name: str, files: dict, prefix: str, engine: str,
+               device: Optional[str] = None,
+               native_retag: bool = True) -> dict:
+    """PARITY_RUNS[name] on a scenario's files through `main` (a CLI's
+    main(argv)) with --engine `engine` (and --device `device`) into
+    `prefix`: the run, its resume step and its varhaptag. Each run reads
+    and writes its coverage cache and CRAM spool in a directory of its own
+    (<prefix>.spool); native_retag=False retags BAMs in Python
+    (POMFRET_NO_NATIVE_RETAG=1). Raises on a non-zero exit. Returns the
+    prefixes written, in order, the lines the resume run added to the
+    manifest (None without one) and the seconds of each step."""
+    run = PARITY_RUNS[name]
+    spool = prefix + ".spool"
+    os.makedirs(spool, exist_ok=True)
+    argv = ["--engine", engine, *(["--device", device] if device else []),
+            *run.args, f"--{run.intervals}", files[run.intervals],
+            files[run.alignments]]
+    out = {"prefixes": [prefix], "resume_added": None, "seconds": {}}
+
+    def call(step, args):
+        t0 = time.perf_counter()
+        with _environ(POMFRET_SPOOL_DIR=spool,
+                      POMFRET_NO_NATIVE_RETAG=None if native_retag else "1"):
+            rc = main(args)
+        if rc != 0:
+            raise RuntimeError(f"{name} ({engine}): {' '.join(args)} exited "
+                               f"{rc}")
+        out["seconds"][step] = time.perf_counter() - t0
+
+    call("methphase", ["methphase", "-o", prefix, *argv])
+    if run.resume_drop is not None:
+        resumed = prefix + "_resumed"
+        with open(prefix + ".mp.manifest.jsonl") as f:
+            lines = [ln for ln in f.read().splitlines()
+                     if json.loads(ln)["ref"] not in run.resume_drop]
+        torn = lines[-1][:len(lines[-1]) // 2]
+        if run.resume_tear == "cut":
+            lines[-1:] = []
+        text = "".join(ln + "\n" for ln in lines)
+        if run.resume_tear:
+            text += torn
+        with open(resumed + ".mp.manifest.jsonl", "w") as f:
+            f.write(text)
+        call("resume", ["methphase", "-o", resumed, "--resume", *argv])
+        with open(resumed + ".mp.manifest.jsonl") as f:
+            out["resume_added"] = f.read()[len(text):].count("\n")
+        out["prefixes"].append(resumed)
+    if run.varhaptag:
+        call("varhaptag", ["varhaptag", "-o", prefix + ".vh.bam",
+                           files["vcf"], files[run.alignments]])
+    return out
+
+
+def parity_scenario(name: str, tmpdir: str) -> dict:
+    """PARITY_SCENARIOS[name] made in tmpdir (created), with the seconds
+    it took."""
+    t0 = time.perf_counter()
+    os.makedirs(tmpdir, exist_ok=True)
+    return dict(PARITY_SCENARIOS[name](tmpdir),
+                seconds=time.perf_counter() - t0)
+
+
+def parity_outputs(prefix: str, name: str) -> dict:
+    """What a parity run wrote under `prefix`, to compare: each output's
+    bytes by extension (None where it is missing), the manifest's records
+    ({(ref, gap_i): record}, load_manifest's) and each written BAM's
+    (qname, HP) by record."""
+    from .io.bam import BamReader
+    from .utils.manifest import load_manifest
+    run = PARITY_RUNS[name]
+    exts = run.exts + (VARHAPTAG_EXTS if run.varhaptag else ())
+    out = {}
+    for ext in exts:
+        if not os.path.exists(prefix + ext):
+            out[ext] = None
+            continue
+        if ext.endswith(".bam"):
+            out["hp" + ext] = [(r.qname, r.get_tag("HP"))
+                               for r in BamReader(prefix + ext).fetch_all()]
+        with open(prefix + ext, "rb") as f:
+            out[ext] = f.read()
+    out["manifest"] = load_manifest(prefix + ".mp.manifest.jsonl")
+    return out
+
+
+def parity_diffs(a: dict, b: dict) -> List[str]:
+    """The keys of two parity_outputs that differ: missing on one side,
+    unequal, or empty on both."""
+    return [k for k in sorted(set(a) | set(b))
+            if k not in a or k not in b or a[k] != b[k] or not a[k]]

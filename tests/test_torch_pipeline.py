@@ -156,7 +156,7 @@ def test_methphase_host_engine_matches(host_runs, tmp_path):
 
 @pytest.mark.parametrize("cmd", ["varhaptag", "warmup", "methstat",
                                  "bam2cram"])
-def test_unported_subcommands_exit_2(cmd, capsys):
+def test_subcommands_without_inputs_exit_2(cmd, capsys):
     """The subcommands the port once refused are parsed now: without their
     inputs they exit 2 with argparse's usage error, not as unknown."""
     with pytest.raises(SystemExit) as e:
