@@ -103,7 +103,10 @@ Phases, each printing one line:
     where the vote decides, absurd HP values, soft clips and indels with
     varhaptag, 3 blocks and --resume from a manifest whose last line is
     cut in half, every gap trans, two chromosomes with -t 2 --write-bam
-    and --resume without chr2's line) on their
+    and --resume without chr2's line; and tests/test_differential.py's:
+    4 blocks shorter than READBACK whose merged gap leaves dropped
+    slivers to recover, --tsv over --gtf over --vcf with -u, the coverage
+    estimated under noise, -u -U --dbg on an untagged BAM) on their
     scenarios (testing.parity_scenario): `--engine cuda`, then `--engine
     torch --device cuda`, each counted from zero (BAMs retagged by the
     native library), while `--engine host` (BAMs retagged in Python)
@@ -114,15 +117,31 @@ Phases, each printing one line:
     cuda run launches the loop kernel and decides on the card the gaps
     its manifest gained, no more; prints each run's seconds by engine
     and its launches;
+ 5e. native routes: which rung of the native IO library's link ladder
+    phase 2 loaded (libdeflate or zlib, and its path); every entry of
+    testing.NATIVE_CHECKS on that build (each native route against the
+    port's Python route: BGZF, the BAM scan, meth decode, site
+    selection, window loads, methmers, varhaptag, whole-chromosome
+    sources and scans, the methmer grid, the coverage scan, rANS, the CRAM
+    spool and its paths); then methphase --engine cuda on the parity runs
+    of the cis (flags), cram, untagged (-u), messy and recovery scenarios,
+    on the native routes here and with every Python route switched on
+    (testing.PYTHON_ROUTES) in spawned processes: outputs byte for byte,
+    equal loop-kernel launches and gaps decided; prints each entry's
+    seconds and each route's wall;
  6. report: `pomfret-tpu-torch report --engine cuda` under gens 3 and 2
     against `report --engine host` on the cis two-block scenario;
     .report.tsv must be byte-identical;
  7. run_gap: the single-gap engine (kernels.engine_torch.run_gap) with
     engine "cuda" against engine "torch" on the CPU and the host oracle,
     gap by gap on the parity scenarios (n_permutations 1, and 5 on each
-    chromosome's first gap): decisions and per-read tags equal, and the
+    chromosome's first gap; the host runs in 6 spawned processes, a share
+    of the gaps each, while the cuda runs run in the script's):
+    decisions and per-read tags equal, and the
     loop kernel's launches, counted from zero, equal to the directions the
-    cuda runs dispatched (run_gap.dispatched);
+    cuda runs dispatched (run_gap.dispatched); prints the phase's wall,
+    the cuda runs' seconds and the host runs' seconds summed over the
+    processes;
  8. processes: `methphase --engine cuda` on the 200-gap dataset in one
     fresh process, then in two processes of one gloo group sharing this
     card (POMFRET_COORDINATOR on a free loopback port,
@@ -700,37 +719,87 @@ def v3_lanes(dev, order=(1, 2, 4, 8, 8, 4, 2, 1)):
             for w, rs in got.items()}
 
 
+def _gap_inputs(bam, job):
+    """A phase-7 gap's reads and methmer sites, loaded afresh for a run."""
+    from pomfret_tpu_torch.core.methmer import get_methmer_sites_and_ranges
+    from pomfret_tpu_torch.core.readset import (READBACK,
+                                                load_reads_given_interval)
+    _, ref, start, end, cfg = job[:5]
+    rs = load_reads_given_interval(bam, ref, start, end, READBACK, cfg)
+    return (rs, get_methmer_sites_and_ranges(rs, cfg, 0),
+            get_methmer_sites_and_ranges(rs, cfg, 1))
+
+
+def run_gap_jobs(jobs, runs, threads):
+    """Phase 7's runs on the host (`runs`: "host", the oracle, and
+    "torch_cpu", run_gap's plain loop on the CPU) of each job (bam path,
+    ref, start, end, cfg, n_cand, n_permutations, seed), in a process of
+    its own with `threads` torch threads: [{run: (decision, tags,
+    seconds)}] by job."""
+    import torch
+
+    from pomfret_tpu_torch.core.engine_host import Drand48, haplotag_region
+    from pomfret_tpu_torch.io.bam import BamReader
+    from pomfret_tpu_torch.kernels.engine_torch import run_gap
+    torch.set_num_threads(threads)
+    out, bams = [], {}
+    for job in jobs:
+        bam = bams.setdefault(job[0], BamReader(job[0]))
+        _, _, _, _, cfg, n_cand, n_perm, seed = job
+        got = {}
+        for run in runs:
+            rs, f, b = _gap_inputs(bam, job)
+            rng = Drand48.from_srand48(seed)
+            t0 = time.perf_counter()
+            if run == "host":
+                dec = haplotag_region(rs, f, b, n_cand, cfg.cov_for_runtime,
+                                      n_perm, rng)
+            else:
+                dec = run_gap(rs, f, b, n_cand, cfg.cov_for_runtime, n_perm,
+                              rng, engine="torch", device="cpu")
+            got[run] = (dec, [r.hp for r in rs.reads],
+                        time.perf_counter() - t0)
+        out.append(got)
+    return out
+
+
+# phase 7's host runs: how many processes run them at once
+RUN_GAP_PROCS = 6
+
+
 def phase_run_gap(scenarios, runs=("host", "torch_cpu", "cuda"),
                   first_gap=False):
     """run_gap(engine="cuda") against run_gap(engine="torch") on the CPU
     and the host oracle (`runs`, any of them), gap by gap over the
     scenarios: every gap with one seed; the first gap of each chromosome
     with 5 permutations (per-gap srand48 streams); with first_gap, the
-    first scenario's first gap alone, one seed. Decisions and per-read tags
-    equal; returns the counts, the directions the cuda runs dispatched and
-    the walls."""
-    from pomfret_tpu_torch.core.engine_host import Drand48, haplotag_region
+    first scenario's first gap alone, one seed. The host runs go to
+    RUN_GAP_PROCS spawned processes, a share of the gaps each, while the
+    cuda runs run here. Decisions and per-read tags equal; returns the
+    counts, the directions the cuda runs dispatched, the phase's wall
+    (wall_s), and each run's seconds summed over the gaps (runs_s): the
+    cuda runs' in this process, the host runs' summed over processes
+    that ran at once, so not a wall."""
+    from pomfret_tpu_torch.core.engine_host import Drand48
     from pomfret_tpu_torch.core.intervals import (Storage,
                                                   merge_close_intervals,
                                                   store_raw_intervals)
-    from pomfret_tpu_torch.core.methmer import get_methmer_sites_and_ranges
-    from pomfret_tpu_torch.core.readset import (READBACK, MmrConfig,
-                                                load_reads_given_interval)
+    from pomfret_tpu_torch.core.readset import READBACK, MmrConfig
     from pomfret_tpu_torch.io.bam import BamReader
     from pomfret_tpu_torch.io.intervals_loader import (
         IS_VCF, load_intervals_from_file)
     from pomfret_tpu_torch.kernels.engine_torch import run_gap
     from pomfret_tpu_torch.pipeline import (_derive_chrom_params,
                                             estimate_read_coverage_cached)
+    from pomfret_tpu_torch.testing import Spawned
 
-    walls = dict.fromkeys(runs, 0.0)
-    n_runs = joined = cuda_directions = 0
+    t0 = time.perf_counter()
+    jobs = []
     last = 1 if first_gap else None
     for bam_path, vcf in scenarios[:last]:
         st = Storage()
         load_intervals_from_file(vcf, IS_VCF, st)
         cov = estimate_read_coverage_cached(bam_path, 2)
-        bam = BamReader(bam_path)
         for j, (rg, ref) in enumerate(list(zip(st.ranges,
                                                st.ref_names))[:last]):
             store_raw_intervals(rg)
@@ -739,40 +808,49 @@ def phase_run_gap(scenarios, runs=("host", "torch_cpu", "cuda"),
                                                cov.get(ref, 0), ref)
             for i in range(len(rg.starts))[:last]:
                 for n_perm in ((1, 5) if i == 0 and not first_gap else (1,)):
-                    got = {}
-                    for run in walls:
-                        rs = load_reads_given_interval(
-                            bam, ref, rg.starts[i], rg.ends[i], READBACK,
-                            cfg)
-                        f = get_methmer_sites_and_ranges(rs, cfg, 0)
-                        b = get_methmer_sites_and_ranges(rs, cfg, 1)
-                        rng = Drand48.from_srand48(j * 1_000_003 + i)
-                        t0 = time.perf_counter()
-                        if run == "host":
-                            dec = haplotag_region(rs, f, b, n_cand,
-                                                  cfg.cov_for_runtime,
-                                                  n_perm, rng)
-                        else:
-                            d0 = run_gap.dispatched
-                            dec = run_gap(
-                                rs, f, b, n_cand, cfg.cov_for_runtime,
-                                n_perm, rng,
-                                engine="torch" if run == "torch_cpu"
-                                else "cuda",
-                                device="cpu" if run == "torch_cpu" else None)
-                            if run == "cuda":
-                                cuda_directions += run_gap.dispatched - d0
-                        walls[run] += time.perf_counter() - t0
-                        got[run] = (dec, [r.hp for r in rs.reads])
-                    check(all(v == got["cuda"] for v in got.values()),
-                          f"run_gap {ref}:{rg.starts[i]}-{rg.ends[i]} "
-                          f"n_permutations={n_perm}: decisions "
-                          f"{ {k: v[0] for k, v in got.items()} } or tags "
-                          "differ")
-                    n_runs += 1
-                    joined += got["cuda"][0] >= 0
-    return dict(gap_runs=n_runs, joined=joined,
-                cuda_directions=cuda_directions, walls_s=walls)
+                    jobs.append((bam_path, ref, rg.starts[i], rg.ends[i],
+                                 cfg, n_cand, n_perm, j * 1_000_003 + i))
+    host_runs = [r for r in runs if r != "cuda"]
+    n_procs = min(RUN_GAP_PROCS, len(jobs))
+    procs = [Spawned(run_gap_jobs, jobs[k::n_procs], host_runs,
+                     max(1, (os.cpu_count() or 1) // n_procs))
+             for k in range(n_procs)] if host_runs else []
+    try:
+        runs_s = dict.fromkeys(runs, 0.0)
+        got = [{} for _ in jobs]
+        cuda_directions = 0
+        bams = {}
+        for job, g in zip(jobs, got):
+            if "cuda" not in runs:
+                break
+            _, _, _, _, cfg, n_cand, n_perm, seed = job
+            rs, f, b = _gap_inputs(bams.setdefault(job[0],
+                                                   BamReader(job[0])), job)
+            d0 = run_gap.dispatched
+            t1 = time.perf_counter()
+            dec = run_gap(rs, f, b, n_cand, cfg.cov_for_runtime, n_perm,
+                          Drand48.from_srand48(seed), engine="cuda")
+            g["cuda"] = (dec, [r.hp for r in rs.reads],
+                         time.perf_counter() - t1)
+            cuda_directions += run_gap.dispatched - d0
+        for k, p in enumerate(procs):
+            for g, h in zip(got[k::n_procs], p.result(timeout=1200)):
+                g.update(h)
+    finally:
+        for p in procs:
+            p.stop()
+    for job, g in zip(jobs, got):
+        first = g[runs[-1]][:2]
+        check(all(v[:2] == first for v in g.values()),
+              f"run_gap {job[1]}:{job[2]}-{job[3]} n_permutations="
+              f"{job[6]}: decisions { {k: v[0] for k, v in g.items()} } "
+              "or tags differ")
+        for run, v in g.items():
+            runs_s[run] += v[2]
+    return dict(gap_runs=len(jobs), joined=sum(g[runs[-1]][0] >= 0
+                                               for g in got),
+                cuda_directions=cuda_directions, runs_s=runs_s,
+                host_procs=len(procs), wall_s=time.perf_counter() - t0)
 
 
 def phase_profile(base):
@@ -904,7 +982,6 @@ def phase_parity_rows(work):
     each run's seconds, launches and gaps."""
     from pomfret_tpu_torch.cli import main as port_main
     from pomfret_tpu_torch.io.native import native_available
-    from pomfret_tpu_torch.parallel.batch import DISPATCH_STATS
     from pomfret_tpu_torch.testing import (PARITY_RUNS, Spawned,
                                            parity_diffs, parity_outputs,
                                            parity_run, parity_scenario)
@@ -937,14 +1014,9 @@ def phase_parity_rows(work):
             fs = made[PARITY_RUNS[name].scenario].result()
             got = {}
             for engine, device in (("cuda", None), ("torch", "cuda")):
-                zero_counts()
-                g0 = DISPATCH_STATS["gaps_decided"]
-                r = parity_run(port_main, name, fs,
-                               os.path.join(root, name, engine), engine,
-                               device)
-                r["kernel_launches"] = read_counts()
-                r["gaps_decided"] = DISPATCH_STATS["gaps_decided"] - g0
-                got[engine] = r
+                got[engine] = counted_run(name, fs,
+                                          os.path.join(root, name, engine),
+                                          engine, device)
             got["host"] = host[name].result()
             ref = got["cuda"]
             gaps = len(parity_outputs(ref["prefixes"][0], name)["manifest"])
@@ -977,6 +1049,92 @@ def phase_parity_rows(work):
         ex.shutdown(wait=True, cancel_futures=True)
     out["wall_s"] = time.perf_counter() - t0
     return out
+
+
+# phase 5e's methphase runs, native routes against Python routes
+ROUTE_RUNS = ("flags", "cram", "untagged", "messy", "recovery")
+
+
+def native_rung(lib):
+    """Which rung of the native library's link ladder `lib` is: libdeflate
+    (the first) or zlib (the last: where libdeflate is missing)."""
+    from pomfret_tpu_torch.io import native
+    for rung, extra in zip(("libdeflate", "zlib"), native._LINK_LADDER):
+        if os.path.basename(lib._name) == os.path.basename(
+                native.library_path(extra)):
+            return rung
+    check(False, f"the native library {lib._name} is on no rung of the "
+          "link ladder")
+
+
+def phase_native_routes(work, lib):
+    """Phase 5e: the native IO library's routes against the port's Python
+    routes on this host's build of it. (a) which rung loaded; (b) every
+    testing.NATIVE_CHECKS entry, on phase 5d's scenarios (work/
+    parity_rows); (c) the parity runs of ROUTE_RUNS with --engine cuda,
+    once on the native routes in this process and once with every Python
+    route switched on (testing.PYTHON_ROUTES) in spawned processes, all
+    started at once: each step's outputs equal byte for byte, and equal
+    loop-kernel launches and gaps decided. Returns the rung, each entry's
+    seconds and each run's walls by route."""
+    from pomfret_tpu_torch.testing import (PARITY_RUNS, PYTHON_ROUTES,
+                                           Spawned, parity_diffs,
+                                           parity_outputs, run_native_checks,
+                                           scenario_files)
+    t0 = time.perf_counter()
+    root = os.path.join(work, "parity_rows")
+    out = {"rung": native_rung(lib), "lib": os.path.relpath(lib._name, ROOT)}
+    out["checks_s"] = run_native_checks(root)
+    d = os.path.join(work, "native_routes")
+    environ = {**os.environ, **PYTHON_ROUTES}
+    files = {n: scenario_files(PARITY_RUNS[n].scenario,
+                               os.path.join(root, PARITY_RUNS[n].scenario))
+             for n in ROUTE_RUNS}
+    python = {n: Spawned(counted_run, n, files[n],
+                         os.path.join(d, n, "python"), "cuda",
+                         environ=environ) for n in ROUTE_RUNS}
+    out["runs"] = {}
+    try:
+        for n in ROUTE_RUNS:
+            nat = counted_run(n, files[n], os.path.join(d, n, "native"),
+                              "cuda")
+            py = python[n].result(timeout=600)
+            for p, q in zip(nat["prefixes"], py["prefixes"]):
+                diff = parity_diffs(parity_outputs(p, n),
+                                    parity_outputs(q, n))
+                check(not diff, f"native routes: {n}: {p} and {q} differ in "
+                      f"{diff}")
+            for k in ("kernel_launches", "gaps_decided", "resume_added"):
+                check(nat[k] == py[k], f"native routes: {n}: {k} "
+                      f"{nat[k]} native, {py[k]} Python")
+            check(nat["kernel_launches"]["loop_kernel"] > 0
+                  and nat["gaps_decided"] > 0,
+                  f"native routes: {n} decided no gap on the card")
+            out["runs"][n] = dict(
+                native_s=nat["wall_s"], python_s=py["wall_s"],
+                loop_kernel_launches=nat["kernel_launches"]["loop_kernel"],
+                gaps_decided=nat["gaps_decided"])
+    finally:
+        for s in python.values():
+            s.stop()
+    out["wall_s"] = time.perf_counter() - t0
+    return out
+
+
+def say_native_routes(nr, card):
+    say("native-routes", f"the native IO library: the {nr['rung']} rung, "
+        f"{nr['lib']}; {card}")
+    say("native-routes", f"{len(nr['checks_s'])} NATIVE_CHECKS entries, "
+        "native == Python: " + ", ".join(
+            f"{k} {v:.2f} s" for k, v in nr["checks_s"].items())
+        + f" (sum {sum(nr['checks_s'].values()):.1f} s); {card}")
+    say("native-routes", "methphase --engine cuda, native routes == every "
+        "Python route (outputs byte for byte, loop-kernel launches, gaps "
+        "decided): " + ", ".join(
+            f"{n} native {r['native_s']:.2f} s / Python {r['python_s']:.2f} "
+            f"s ({r['loop_kernel_launches']} launches, {r['gaps_decided']} "
+            "gaps)" for n, r in nr["runs"].items())
+        + f"; phase {nr['wall_s']:.1f} s; {card}")
 
 
 def say_parity_rows(pr, card):
@@ -1447,7 +1605,7 @@ def say_dense(dn, card):
     rg, k = dn["run_gap"], dn["kernel"]
     say("dense", f"run_gap cuda == host oracle (decisions, tags) on the "
         f"first dense gap: walls " + ", ".join(
-            f"{n} {w:.1f} s" for n, w in rg["walls_s"].items())
+            f"{n} {w:.1f} s" for n, w in rg["runs_s"].items())
         + f"; {card}")
     say("dense", f"loop kernel alone on methphase's batch (every gap): "
         f"({k['G']},{k['R']},{k['S']}) D={k['D']} nc={k['nc_cap']} "
@@ -1525,6 +1683,24 @@ def read_counts():
           f"launch counts: wrappers {n}, dispatch "
           f"{DISPATCH_STATS['kernel_launches']}")
     return n
+
+
+def counted_run(name, files, prefix, engine, device=None):
+    """testing.parity_run of PARITY_RUNS[name] through the port's CLI, its
+    kernels' launches counted from zero (read_counts) and the gaps it
+    decided on the device, with its wall. Spawnable: phase 5e runs it in
+    processes of their own."""
+    from pomfret_tpu_torch.cli import main as port_main
+    from pomfret_tpu_torch.parallel.batch import DISPATCH_STATS
+    from pomfret_tpu_torch.testing import parity_run
+    zero_counts()
+    g0 = DISPATCH_STATS["gaps_decided"]
+    t0 = time.perf_counter()
+    r = parity_run(port_main, name, files, prefix, engine, device)
+    r["wall_s"] = time.perf_counter() - t0
+    r["kernel_launches"] = read_counts()
+    r["gaps_decided"] = DISPATCH_STATS["gaps_decided"] - g0
+    return r
 
 
 def same_outputs(p1, p2, exts):
@@ -1960,6 +2136,10 @@ def main(argv=()):
     report["parity_rows"] = prw = phase_parity_rows(work)
     say_parity_rows(prw, card)
 
+    # 5e: the native IO library's routes against the Python routes
+    report["native_routes"] = nr = phase_native_routes(work, native_lib)
+    say_native_routes(nr, card)
+
     d3 = os.path.join(work, "report")
     os.makedirs(d3)
     bam3, vcf3, _ = make_two_block_scenario(d3)
@@ -1997,9 +2177,12 @@ def main(argv=()):
         f"({rg['joined']} joined; n_permutations 1, and 5 on each "
         f"chromosome's first gap), {rg['kernel_launches']['loop_kernel']} "
         f"loop-kernel launches for {rg['cuda_directions']} directions "
-        f"dispatched; walls "
-        + ", ".join(f"{k} {v:.1f} s" for k, v in rg["walls_s"].items())
-        + f"; {card}")
+        f"dispatched; phase wall {rg['wall_s']:.1f} s (cuda runs "
+        f"{rg['runs_s']['cuda']:.1f} s in this process; the host runs' "
+        f"seconds summed over {rg['host_procs']} processes at once: "
+        + ", ".join(f"{k} {v:.1f} s" for k, v in rg["runs_s"].items()
+                    if k != "cuda")
+        + f"); {card}")
 
     # 8: two processes of one gloo group on this card
     report["processes"] = pp = phase_processes(p_c, base, d3, rargs)

@@ -14,6 +14,9 @@ chip_smoke.py.
 - run_processes: one CLI command run by several processes of one gloo
   process group on this host; Spawned: one call in a process of its own;
   peak_rss_mib: a process's own peak RSS.
+- The parity runs (PARITY_SCENARIOS, PARITY_RUNS, parity_run): the CLI
+  behaviours of the JAX package's tests; NATIVE_CHECKS: the native IO
+  library's routes, each against the Python route.
 """
 from __future__ import annotations
 
@@ -1670,7 +1673,7 @@ def _cis_files(d: str, cram: bool = False) -> dict:
     bam, vcf, truth = make_two_block_scenario(d)
     gtf = os.path.join(d, "blocks.gtf")
     _write_blocks_gtf(gtf, truth["region"], truth["blocks"])
-    out = dict(bam=bam, vcf=vcf, gtf=gtf)
+    out = dict(bam=bam, vcf=vcf, gtf=gtf, gap=list(truth["gap"]))
     if cram:  # tests/test_cram.py's methphase input
         from .io.cram_writer import bam_to_cram
         out["cram"] = os.path.join(d, "synth.cram")
@@ -1682,11 +1685,28 @@ def _files(made) -> dict:
     return dict(bam=made[0], vcf=made[1])
 
 
+def _untagged_files(d: str) -> dict:
+    """The untagged two-block scenario, with its phase blocks also as the
+    GTF (columns 1, 4 and 5) and 3-column TSV files of
+    tests/test_differential.py's _write_block_files: 1-based, inclusive,
+    from each block's start to its end."""
+    bam, vcf, truth = make_two_block_scenario(d, tagged=False)
+    out = dict(bam=bam, vcf=vcf, gtf=os.path.join(d, "blocks.gtf"),
+               tsv=os.path.join(d, "blocks.tsv"), gap=list(truth["gap"]))
+    chrom = truth["region"].cfg.chrom
+    with open(out["gtf"], "w") as fg, open(out["tsv"], "w") as ft:
+        for lo, hi in truth["blocks"]:
+            fg.write(f"{chrom}\tPhasing\texon\t{lo + 1}\t{hi}\t.\t+\t.\t"
+                     f'gene_id "{lo + 1}"; transcript_id "{lo + 1}.1";\n')
+            ft.write(f"{chrom}\t{lo + 1}\t{hi}\n")
+    return out
+
+
 # name -> maker(dir) -> {"bam", "vcf"[, "gtf"][, "cram"]}
 PARITY_SCENARIOS = {
     "cis": _cis_files,
     "cram": lambda d: _cis_files(d, cram=True),
-    "untagged": lambda d: _files(make_two_block_scenario(d, tagged=False)),
+    "untagged": _untagged_files,
     "two_chrom": lambda d: _files(make_two_chrom_scenario(d)),
     "multi_block": lambda d: _files(make_multi_block_scenario(d, n_blocks=3)),
     "trans_alternate": lambda d: _files(make_multichrom_multigap_scenario(
@@ -1701,14 +1721,25 @@ PARITY_SCENARIOS = {
         uninformative=(84_000, 120_000))),
     "weird_hp": lambda d: _files(make_weird_hp_scenario(d)),
     "messy": lambda d: _files(make_messy_scenario(d)),
+    # tests/test_differential.py:122: 4 blocks of 32 kb, shorter than
+    # READBACK, 20 kb apart: the gaps merge into one and the two middle
+    # blocks become dropped slivers, whose variants core/recovery.py
+    # re-phases
+    "recovery": lambda d: _files(make_multi_block_scenario(
+        d, n_blocks=4, block_len=32_000, gap_len=20_000)),
+    # tests/test_differential.py:98: noisy calls, the coverage estimated
+    "noisy": lambda d: _files(make_two_block_scenario(
+        d, cfg=SynthConfig(noise=0.06, nocall=0.06, seed=11))),
 }
 
 
 @dataclass(frozen=True)
 class ParityRun:
     """One methphase run of a parity scenario: `args` besides -o,
-    --engine, the phase blocks' file (`intervals`: --vcf or --gtf) and the
-    alignments (`alignments`: the scenario's BAM or CRAM); `exts` are the
+    --engine, the phase blocks' files (`intervals`: the flags among --tsv,
+    --gtf and --vcf, each given the scenario's file of that name, in this
+    order) and the alignments (`alignments`: the scenario's BAM or CRAM);
+    `exts` are the
     outputs compared byte for byte (the manifest is compared as records).
     `resume_drop`: then a --resume run into <prefix>_resumed from this
     run's manifest without those chromosomes' lines, its last line then
@@ -1721,7 +1752,7 @@ class ParityRun:
     scenario: str
     args: Tuple[str, ...]
     exts: Tuple[str, ...] = (".mp.vcf", ".mp.gtf", ".mp.tsv")
-    intervals: str = "vcf"
+    intervals: Tuple[str, ...] = ("vcf",)
     alignments: str = "bam"
     resume_drop: Optional[Tuple[str, ...]] = None
     resume_tear: str = ""
@@ -1741,7 +1772,8 @@ PARITY_RUNS = {
     "untagged": ParityRun("untagged", ("-c", "50", "-u", "-U", "--write-bam"),
                           (".mp.vcf", ".mp.gtf", ".mp.input_haptag.tsv",
                            *_BAM_EXTS)),
-    "gtf": ParityRun("cis", _TSV, (".mp.gtf", ".mp.tsv"), intervals="gtf"),
+    "gtf": ParityRun("cis", _TSV, (".mp.gtf", ".mp.tsv"),
+                     intervals=("gtf",)),
     "coverage": ParityRun("cis", ("--output-tsv",)),  # no -c: estimated
     "cram": ParityRun("cram", _TSV, alignments="cram", varhaptag=True),
     **{f"perm{n}_bridge": ParityRun("perm_bridge", ("-c", "50",
@@ -1760,6 +1792,20 @@ PARITY_RUNS = {
                                          "--write-bam"),
                            (".mp.vcf", ".mp.gtf", *_BAM_EXTS),
                            resume_drop=("chr2",)),
+    # the scenarios of tests/test_differential.py that no other run
+    # reaches: the dropped-sliver recovery (:122), the block sources' order
+    # --tsv > --gtf > --vcf with -u (:215), the coverage estimated under
+    # noise (:98) and -u -U --dbg on an untagged BAM (:229); --dbg dumps
+    # the read names in insertion order in both packages
+    "recovery": ParityRun("recovery", ("-c", "50", "--write-bam"),
+                          (".mp.vcf", ".mp.gtf", *_BAM_EXTS)),
+    "tsv_override": ParityRun("untagged", ("-c", "50", "-u"),
+                              (".mp.vcf", ".mp.gtf"),
+                              intervals=("tsv", "gtf", "vcf")),
+    "noisy_estimator": ParityRun("noisy", (), (".mp.vcf", ".mp.gtf")),
+    "untagged_dbg": ParityRun("untagged", ("-c", "50", "-u", "-U", "--dbg"),
+                              (".mp.vcf", ".mp.gtf", ".mp.input_haptag.tsv",
+                               ".mp.dbg.read2tag")),
 }
 
 VARHAPTAG_EXTS = (".vh.bam", ".vh.bam.bai", ".vh.bam.varhaptag.tsv")
@@ -1794,21 +1840,24 @@ def parity_run(main, name: str, files: dict, prefix: str, engine: str,
     `prefix`: the run, its resume step and its varhaptag. Each run reads
     and writes its coverage cache and CRAM spool in a directory of its own
     (<prefix>.spool); native_retag=False retags BAMs in Python
-    (POMFRET_NO_NATIVE_RETAG=1). Raises on a non-zero exit. Returns the
+    (POMFRET_NO_NATIVE_RETAG=1), else the environment decides. Raises on
+    a non-zero exit. Returns the
     prefixes written, in order, the lines the resume run added to the
     manifest (None without one) and the seconds of each step."""
     run = PARITY_RUNS[name]
     spool = prefix + ".spool"
     os.makedirs(spool, exist_ok=True)
     argv = ["--engine", engine, *(["--device", device] if device else []),
-            *run.args, f"--{run.intervals}", files[run.intervals],
+            *run.args,
+            *(a for flag in run.intervals for a in (f"--{flag}", files[flag])),
             files[run.alignments]]
     out = {"prefixes": [prefix], "resume_added": None, "seconds": {}}
 
     def call(step, args):
         t0 = time.perf_counter()
         with _environ(POMFRET_SPOOL_DIR=spool,
-                      POMFRET_NO_NATIVE_RETAG=None if native_retag else "1"):
+                      **({} if native_retag else
+                         {"POMFRET_NO_NATIVE_RETAG": "1"})):
             rc = main(args)
         if rc != 0:
             raise RuntimeError(f"{name} ({engine}): {' '.join(args)} exited "
@@ -1839,13 +1888,51 @@ def parity_run(main, name: str, files: dict, prefix: str, engine: str,
     return out
 
 
-def parity_scenario(name: str, tmpdir: str) -> dict:
-    """PARITY_SCENARIOS[name] made in tmpdir (created), with the seconds
-    it took."""
-    t0 = time.perf_counter()
+def _makers_digest() -> str:
+    """The digest of this file, which holds every scenario's maker."""
+    import hashlib
+    with open(__file__, "rb") as f:
+        return hashlib.sha1(f.read()).hexdigest()
+
+
+def scenario_files(name: str, tmpdir: str) -> dict:
+    """PARITY_SCENARIOS[name]'s files in tmpdir: made there (created) the
+    first time, with their names in tmpdir/files.json, which later calls
+    read while it names this scenario and the makers as they are now
+    (_makers_digest); else the scenario is made again."""
+    done = os.path.join(tmpdir, "files.json")
+    key = {"scenario": name, "makers": _makers_digest()}
+    if os.path.exists(done):
+        with open(done) as f:
+            got = json.load(f)
+        if {k: got.get(k) for k in key} == key:
+            return got["files"]
     os.makedirs(tmpdir, exist_ok=True)
-    return dict(PARITY_SCENARIOS[name](tmpdir),
+    files = PARITY_SCENARIOS[name](tmpdir)
+    with open(done + ".tmp", "w") as f:
+        json.dump(dict(key, files=files), f)
+    os.replace(done + ".tmp", done)
+    return files
+
+
+def parity_scenario(name: str, tmpdir: str) -> dict:
+    """scenario_files(name, tmpdir), with the seconds it took."""
+    t0 = time.perf_counter()
+    return dict(scenario_files(name, tmpdir),
                 seconds=time.perf_counter() - t0)
+
+
+def dropped_sliver_rewrites(vcf: bytes) -> int:
+    """The records of a written .mp.vcf that the dropped-sliver branch
+    re-phased: GT unphased ("x/y") and PS "." (tests/test_differential.py
+    :137-146's count)."""
+    n = 0
+    for line in vcf.decode().splitlines():
+        if line.startswith("#"):
+            continue
+        sample = line.split("\t")[9]
+        n += "/" in sample.split(":")[0] and sample.endswith(":.")
+    return n
 
 
 def parity_outputs(prefix: str, name: str) -> dict:
@@ -1876,3 +1963,1043 @@ def parity_diffs(a: dict, b: dict) -> List[str]:
     unequal, or empty on both."""
     return [k for k in sorted(set(a) | set(b))
             if k not in a or k not in b or a[k] != b[k] or not a[k]]
+
+
+# ---------------------------------------------------------------------------
+# The native checks: each of the native library's routes held against the
+# port's Python route on the same inputs (the checks of the JAX package's
+# tests/test_native.py, test_window_native.py, test_coverage.py and the
+# spool and rANS cases of test_cram.py). NATIVE_CHECKS[name](work) makes
+# its inputs under `work` (a scenario of PARITY_SCENARIOS in
+# work/<scenario>, made once and reused), runs both routes through the
+# switches the pipeline itself reads, raises on the first difference and
+# returns the Python route's result. NATIVE_CHECKS[name](work, mods) runs
+# only the Python route, through `mods` (port_modules()'s names bound to
+# another package's modules): tests/test_torch_units_native.py holds it
+# against the JAX package's. chip_smoke.py phase 5e runs every entry on the
+# card host's build of the library.
+
+def port_modules():
+    """The modules that the native checks drive, by short name, and the
+    methphase engine of their CLI runs: cuda where a card is present, else
+    the plain loop on the CPU."""
+    import types
+
+    import torch
+
+    from . import pipeline
+    from .cli import main as cli_main
+    from .core import methmer, readset, varhaptag, variants
+    from .core.intervals import Storage
+    from .io import (bam, bam_writer, basemod, bgzf, cram, cram_writer,
+                     intervals_loader, native, rans4x8, records)
+    from .kernels.engine_torch import _grid_from_arrays
+    return types.SimpleNamespace(
+        bam=bam, bam_writer=bam_writer, basemod=basemod, bgzf=bgzf,
+        cram=cram, cram_writer=cram_writer,
+        intervals_loader=intervals_loader, native=native, rans4x8=rans4x8,
+        records=records, methmer=methmer, readset=readset,
+        varhaptag=varhaptag, variants=variants, Storage=Storage,
+        pipeline=pipeline, grid_from_arrays=_grid_from_arrays,
+        cli_main=cli_main,
+        engine="cuda" if torch.cuda.is_available() else "torch")
+
+
+def first_difference(a, b, path="") -> str:
+    """Where two results first differ, and the two values there."""
+    if isinstance(a, dict) and isinstance(b, dict):
+        for k in sorted(set(a) | set(b), key=repr):
+            if a.get(k, KeyError) != b.get(k, KeyError):
+                return first_difference(a.get(k), b.get(k), f"{path}[{k!r}]")
+    elif isinstance(a, (list, tuple)) and isinstance(b, (list, tuple)):
+        for i, (x, y) in enumerate(zip(a, b)):
+            if x != y:
+                return first_difference(x, y, f"{path}[{i}]")
+        if len(a) != len(b):
+            return f"{path}: {len(a)} against {len(b)} items"
+    return f"{path}: {repr(a)[:200]} against {repr(b)[:200]}"
+
+
+def _same(name: str, python, native) -> None:
+    if python != native:
+        raise AssertionError(f"{name}: the native route differs from the "
+                             "Python route at "
+                             + first_difference(python, native))
+
+
+def _need(ok, msg: str) -> None:
+    if not ok:
+        raise AssertionError(msg)
+
+
+def _fresh(work: str, name: str) -> str:
+    os.makedirs(work, exist_ok=True)
+    return tempfile.mkdtemp(prefix=name + "_", dir=work)
+
+
+def _raised(fn):
+    """fn()'s result, or (type name, message) of what it raised."""
+    try:
+        return fn()
+    except (ValueError, RuntimeError) as e:
+        return (type(e).__name__, str(e))
+
+
+def _payload(n: int) -> bytes:
+    return np.random.default_rng(n).bytes(n) + b"tail"
+
+
+def _py_inflate(m, raw: bytes) -> bytes:
+    """Every BGZF block of `raw` inflated by Python's zlib."""
+    out, off = [], 0
+    while off < len(raw):
+        payload, off = m.bgzf._inflate_block(raw, off)
+        out.append(payload)
+    return b"".join(out)
+
+
+def _check_bgzf_inflate(work, mods=None):
+    """test_native.py:17: a BGZF file's blocks inflated."""
+    m = mods or port_modules()
+    payload = _payload(500_000)
+    p = os.path.join(_fresh(work, "bgzf"), "x.bgzf")
+    with m.bgzf.BgzfWriter(p, threads=2) as w:
+        w.write(payload)
+    with open(p, "rb") as f:
+        comp = f.read()
+    py = _py_inflate(m, comp)
+    _need(py == payload, "bgzf_inflate: Python's inflate lost the payload")
+    if mods is None:
+        _same("bgzf_inflate", py, m.native.bgzf_inflate_all(comp, n_threads=4))
+        _same("bgzf_inflate", py, m.bgzf.BgzfReader(p, threads=2).read_all())
+    return len(py)
+
+
+def _check_bgzf_deflate(work, mods=None):
+    """test_native.py:27: a payload deflated into BGZF blocks, inflated
+    back."""
+    m = mods or port_modules()
+    payload = _payload(300_000)
+    B = m.bgzf.BgzfWriter.BLOCK
+    comp = b"".join(m.bgzf._deflate_block(payload[i:i + B], 6)
+                    for i in range(0, len(payload), B))
+    py = _py_inflate(m, comp)
+    _need(py == payload, "bgzf_deflate: Python's deflate lost the payload")
+    if mods is None:
+        nat = m.native.bgzf_deflate_all(payload, n_threads=4)
+        _need(nat is not None, "bgzf_deflate: the native deflate failed")
+        _same("bgzf_deflate", py, _py_inflate(m, nat))
+        p = os.path.join(_fresh(work, "bgzf"), "y.bgzf")
+        with open(p, "wb") as f:
+            f.write(nat + m.bgzf.BGZF_EOF)
+        _same("bgzf_deflate", py, m.bgzf.BgzfReader(p).read_all())
+    return len(py)
+
+
+def _check_bam_scan(work, mods=None):
+    """test_native.py:36: the columnar whole-BAM scan against each record
+    decoded in Python."""
+    m = mods or port_modules()
+    p = os.path.join(_fresh(work, "scan"), "t.bam")
+    recs = [m.records.make_record(
+        f"r{i}", i % 2, 100 + i * 37, "ACGTACGTAC",
+        [("M", 5), ("D", 3), ("M", 5)] if i % 2 else [("M", 10)],
+        flag=16 if i % 3 == 0 else 0, mapq=10 + i % 50,
+        tags=[("HP", "i", (i % 2) + 1), ("de", "f", 0.01 * (i % 5)),
+              ("MD", "Z", "10"), ("xx", "Z", "junk")]) for i in range(40)]
+    with m.bam_writer.BamWriter(p, ["c1", "c2"], [100000, 100000],
+                                keep_index_info=True) as w:
+        for r in recs:
+            w.write(r)
+    py = [(r.refID, r.pos, r.flag, r.mapq, r.l_seq, m.bam.bam_endpos(r),
+           r.get_tag("HP"), float(np.float32(r.get_tag("de"))))
+          for r in m.bam.BamReader(p).fetch_all()]
+    _need(len(py) == len(recs), f"bam_scan: {len(py)} records read back")
+    if mods is None:
+        cols, _ = m.bam.BamReader(p).scan_columns()
+        _need(cols is not None, "bam_scan: the native scan failed")
+        _same("bam_scan", py, [
+            tuple(int(cols[k][i]) for k in ("refID", "pos", "flag", "mapq",
+                                            "l_seq", "endpos", "hp"))
+            + (float(cols["de"][i]),) for i in range(len(cols["pos"]))])
+    return py
+
+
+_METH_EDGES = (  # test_native.py:112's crafted reads
+    ("ACGTACGTAC", [("S", 2), ("M", 8)], "C+m?,0,0;", [200, 50], 0),
+    ("CCGGACGTAC", [("S", 1), ("M", 6), ("D", 5), ("M", 3)], "C+m.,0;",
+     [200], 0),
+    ("ACGTACGTAC", [("M", 4), ("I", 2), ("M", 4)], "C+m,0,0;", [255, 255], 0),
+    ("AACGTTACGT", [("M", 10)], "C+m?,0,0;", [220, 10], 16),
+    ("ACGCGCGTAC", [("M", 3), ("D", 2), ("M", 7)], "C+m.,0;", None, 0),
+    ("ACGTACGTAC", [("M", 10)], "C+m;", [], 0),
+    ("ACGTACGTAC", [("M", 2), ("N", 3), ("M", 8)], "C+m?,0,0;", [200, 50], 0),
+    ("CGCGCGCGCG", [("M", 10)], "C+m.,1;", [140], 16),
+)
+
+
+def _check_meth_decode(work, mods=None):
+    """test_native.py:68: each read's 5mC calls lifted to the reference,
+    on every read of the cis scenario and on crafted reads; the shapes the
+    native decoder leaves to Python come back as None."""
+    m = mods or port_modules()
+    lo, hi = 100, 156
+    recs = [r for r in m.bam.BamReader(
+        scenario_files("cis", os.path.join(work, "cis"))["bam"]).fetch_all()
+        if r.get_tag("MM")]
+    _need(len(recs) > 100, f"meth_decode: {len(recs)} reads with MM")
+    for i, (seq, cig, mm, ml, flag) in enumerate(_METH_EDGES):
+        tags = [("MM", "Z", mm)] + ([("ML", "B:C", ml)] if ml is not None
+                                    else [])
+        recs.append(m.records.make_record(f"e{i}", 0, 1000, seq, cig,
+                                          flag=flag, tags=tags))
+
+    def python(rec):
+        poss, quals, imp = m.basemod.extract_cpg_5mc_calls(rec, lo, hi)
+        if not poss:
+            return [], [], imp
+        calls, cq = m.basemod.lift_mod_positions_to_ref(
+            rec.cigar, rec.pos, 1 if rec.is_reverse else 0, list(poss),
+            list(quals), rec.seq() if imp else None, rec.l_seq)
+        return [c & 0xFFFFFFFF for c in calls], list(cq), imp
+
+    def native(rec):
+        mm = rec.get_tag("MM") or rec.get_tag("Mm")
+        ml = rec.get_tag("ML") or rec.get_tag("Ml")
+        got = m.native.meth_decode_read(
+            rec.seq_packed, rec.l_seq, 1 if rec.is_reverse else 0, mm,
+            ml[1] if ml else None, rec.cigar, rec.pos, lo, hi)
+        # the result's arrays are reused by the next call
+        return None if got is None else (got[0].tolist(), got[1].tolist(),
+                                         got[2])
+
+    py = [(r.qname, *python(r)) for r in recs]
+    if mods is None:
+        _same("meth_decode", py, [(r.qname, *(native(r) or (None,) * 3))
+                                  for r in recs])
+        for mm, ml in (("C+m,0;A+a,0;", [1, 2]), ("C+27551,0;", [9])):
+            rec = m.records.make_record("fb", 0, 10, "ACGTACGTAC",
+                                        [("M", 10)],
+                                        tags=[("MM", "Z", mm),
+                                              ("ML", "B:C", ml)])
+            _need(native(rec) is None,
+                  f"meth_decode: the native decoder took MM {mm}")
+    return py
+
+
+def _check_site_select(work, mods=None):
+    """test_native.py:150: the methmer sites (both classes at least `cov`
+    times) of fuzzed calls; then the sites of the cis scenario's gap window
+    in both directions (POMFRET_NO_NATIVE_SITES)."""
+    m = mods or port_modules()
+    rng = np.random.default_rng(7)
+    trials = []
+    for _ in range(25):
+        n = int(rng.integers(0, 5000))
+        pos = rng.integers(0, 2000, size=n).astype(np.uint32)
+        q = rng.integers(0, 3, size=n).astype(np.uint8)
+        trials.append((pos, q, int(rng.integers(1, 8))))
+
+    def oracle(pos, q, cov):
+        uniq, cnts = np.unique(pos.astype(np.uint64) * 4 + q,
+                               return_counts=True)
+        positions, inv = np.unique(uniq // 4, return_inverse=True)
+        cmat = np.zeros((len(positions), 3), dtype=np.int64)
+        np.add.at(cmat, (inv, np.minimum(uniq % 4, 2).astype(np.int64)),
+                  cnts)
+        return positions[(cmat[:, 0] >= cov) & (cmat[:, 1] >= cov)].tolist()
+
+    files = scenario_files("cis", os.path.join(work, "cis"))
+    cfg = m.readset.MmrConfig(cov_for_selection=5, cov_for_runtime=10)
+
+    def sites():
+        rs = m.readset.load_reads_given_interval(
+            m.bam.BamReader(files["bam"]), "chr1", *files["gap"],
+            m.readset.READBACK, cfg)
+        return [m.methmer.get_methmer_sites_and_ranges(
+            rs, cfg, d).sites_real_poss.tolist() for d in (0, 1)]
+
+    with _environ(POMFRET_NO_NATIVE_SITES="1"):
+        py = dict(fuzz=[oracle(*t) for t in trials], window=sites())
+    _need(len(py["window"][0]) > 10, "site_select: no sites in the window")
+    if mods is None:
+        got = []
+        for t in trials:
+            r = m.native.site_select(*t)
+            _need(r is not None, "site_select: the native selection failed")
+            got.append(r.astype(np.uint64).tolist())
+        with _environ(POMFRET_NO_NATIVE_SITES=None):
+            _same("site_select", py, dict(fuzz=got, window=sites()))
+    return py
+
+
+def _snap(rs) -> dict:
+    """A ReadSet as plain values (tests/test_window_native.py's _snap)."""
+    return {
+        "reads": [(r.qname, r.hp, r.strand, r.length, r.start_pos,
+                   r.end_pos, r.calls.tolist(), r.quals.tolist())
+                  for r in rs.reads],
+        "ids_left": list(rs.ids_left),
+        "ids_left_strict": list(rs.ids_left_strict),
+        "ids_right": list(rs.ids_right),
+        "ids_right_strict": list(rs.ids_right_strict),
+        "rev_order": list(rs.rev_order),
+        "ref_start": rs.ref_start, "ref_end": rs.ref_end}
+
+
+def _windows(m, bam, windows, cfg, raw=None, native=False):
+    """The ReadSets of per-window loads, by the Python loader
+    (POMFRET_NO_NATIVE_WINDOW=1) or the native one; a load that raises
+    gives what it raised."""
+    rd = m.bam.BamReader(bam)
+    with _environ(POMFRET_NO_NATIVE_WINDOW=None if native else "1"):
+        return [_raised(lambda: _snap(m.readset.load_reads_given_interval(
+            rd, chrom, s, e, m.readset.READBACK, cfg, raw)))
+            for chrom, s, e in windows]
+
+
+def _window_check(name, m, mods, bam, windows, cfg, raw=None):
+    py = _windows(m, bam, windows, cfg, raw)
+    if mods is None:
+        _need(m.native.native_available(), f"{name}: no native library")
+        _same(name, py, _windows(m, bam, windows, cfg, raw, native=True))
+    return py
+
+
+def _cis_gap(work, m):
+    files = scenario_files("cis", os.path.join(work, "cis"))
+    return (files["bam"], *files["gap"],
+            m.readset.MmrConfig(cov_for_selection=5, cov_for_runtime=10))
+
+
+def _check_window_realistic(work, mods=None):
+    """test_window_native.py:46: the cis scenario's gap window, one wider
+    and offset, and an unknown chromosome."""
+    m = mods or port_modules()
+    bam, gs, ge, cfg = _cis_gap(work, m)
+    py = _window_check("window_realistic", m, mods, bam,
+                       [("chr1", gs, ge), ("chr1", gs - 7000, ge + 9000),
+                        ("chrMissing", gs, ge)], cfg)
+    _need(len(py[0]["reads"]) > 100 and py[2]["reads"] == [],
+          "window_realistic: the windows' reads")
+    return py
+
+
+def _check_window_raw_tag(work, mods=None):
+    """test_window_native.py:63: the haplotags given by read name (-u)."""
+    m = mods or port_modules()
+    bam, gs, ge, cfg = _cis_gap(work, m)
+    names = [r.qname for r in m.bam.BamReader(bam).fetch_all()]
+    raw = {qn: i % 2 for i, qn in enumerate(names[:50])}
+    return _window_check("window_raw_tag", m, mods, bam, [("chr1", gs, ge)],
+                         cfg, raw)
+
+
+def _write_bam(m, path, ref_lens, recs, index=True):
+    with m.bam_writer.BamWriter(path, [f"c{i + 1}" for i in
+                                       range(len(ref_lens))],
+                                ref_lens, keep_index_info=index) as w:
+        for r in recs:
+            w.write(r)
+    if index:
+        w.build_index(n_ref=len(ref_lens))
+    return path
+
+
+def _edge_records(m):
+    """tests/test_window_native.py:73's crafted reads: filters, the MM
+    shapes the native decoder leaves to Python, tag type variants."""
+    mk_rec = m.records.make_record
+    recs = []
+    seq40 = "ACGCGTACGCGTACGCGTACGCGTACGCGTACGCGTACGC"
+    for i in range(32):
+        recs.append(mk_rec(
+            f"fill{i}", 0, 500 + i, seq40, [("M", 40)],
+            flag=16 if i % 4 == 0 else 0, mapq=60,
+            tags=[("HP", "C", (i % 2) + 1), ("MM", "Z", "C+m.,0,0;"),
+                  ("ML", "B:C", [250, 250])]))
+    pos = 600
+
+    def mk(qn, mm="C+m,1;", ml=(200,), tags=(), **kw):
+        t = list(tags)
+        if mm is not None:
+            t.append(("MM", "Z", mm))
+        if ml is not None:
+            t.append(("ML", "B:C", list(ml)))
+        recs.append(mk_rec(qn, 0, pos, seq40, [("M", 40)],
+                           **{"mapq": 60, **kw}, tags=t))
+
+    mk("hp_s", tags=[("HP", "s", 2)])
+    mk("hp_zero", tags=[("HP", "C", 0)])
+    mk("hp_absent")
+    mk("de_ok", tags=[("de", "f", 0.05), ("HP", "C", 1)])
+    mk("de_bad", tags=[("de", "f", 0.5), ("HP", "C", 1)])
+    mk("fb_multi", mm="C+m,1;A+a,0;", ml=(200, 9))
+    mk("fb_chebi", mm="C+27551,1;")
+    mk("fb_minus", mm="C-m,1;")
+    mk("fb_multicode", mm="C+mh,1;", ml=(200, 100))
+    recs.append(mk_rec("mm_lower", 0, pos, seq40, [("M", 40)], mapq=60,
+                       tags=[("Mm", "Z", "C+m,1;"), ("Ml", "B:C", [200])]))
+    mk("ml_missing", mm="C+m,1,0;", ml=None)
+    mk("mm_empty", mm="", ml=None)
+    mk("mm_none", mm=None, ml=None, tags=[("HP", "C", 1)])
+    mk("mapq_low", mapq=3)
+    mk("secondary", flag=256)
+    mk("supp", flag=2048)
+    recs.append(mk_rec("rev1", 0, pos + 1, seq40, [("M", 40)], flag=16,
+                       mapq=60, tags=[("MM", "Z", "C+m.,0,1;"),
+                                      ("ML", "B:C", [250, 10])]))
+    recs.append(mk_rec("implicit1", 0, pos + 2, "ACTTTTTTCGTTTTTTTTTT",
+                       [("M", 20)], mapq=60,
+                       tags=[("MM", "Z", "C+m,0,0;"),
+                             ("ML", "B:C", [250, 250])]))
+    recs.append(mk_rec("clip1", 0, pos + 3, seq40,
+                       [("S", 4), ("M", 20), ("I", 3), ("M", 8), ("D", 6),
+                        ("M", 5)], mapq=60,
+                       tags=[("MM", "Z", "C+m.,0,0,0;"),
+                             ("ML", "B:C", [250, 10, 200])]))
+    recs.append(mk_rec("span_end", 0, 2000, seq40, [("M", 40)], mapq=60,
+                       tags=[("MM", "Z", "C+m,0;"), ("ML", "B:C", [250])]))
+    recs.sort(key=lambda r: r.pos)
+    return recs
+
+
+def _check_window_edges(work, mods=None):
+    """test_window_native.py:149: the crafted reads' window: filters,
+    Python-decoded MM shapes, HP tag types."""
+    m = mods or port_modules()
+    bam = _write_bam(m, os.path.join(_fresh(work, "edge"), "edge.bam"),
+                     [100000], _edge_records(m))
+    cfg = m.readset.MmrConfig(readlen_threshold=10, min_mapq=10,
+                              cov_for_selection=1, cov_for_runtime=2)
+    py = _window_check("window_edges", m, mods, bam, [("c1", 620, 640)], cfg)
+    by = {r[0]: r for r in py[0]["reads"]}
+    _need("fb_minus" in by and "fb_multi" in by
+          and not {"de_bad", "mapq_low", "secondary", "supp", "mm_none",
+                   "mm_empty"} & set(by)
+          and (by["hp_s"][1], by["hp_zero"][1], by["hp_absent"][1])
+          == (1, 254, 254), f"window_edges: reads {sorted(by)}")
+    return py
+
+
+def _check_window_coverage_gate(work, mods=None):
+    """test_window_native.py:171: fewer than 15 reads a haplotype on the
+    left wipe the window."""
+    m = mods or port_modules()
+    seq = "ACGCGTACGCGTACGCGTAC"
+    recs = [m.records.make_record(
+        f"r{i}", 0, 100 + i, seq, [("M", 20)], mapq=60,
+        tags=[("HP", "C", (i % 2) + 1), ("MM", "Z", "C+m,0;"),
+              ("ML", "B:C", [250])]) for i in range(8)]
+    bam = _write_bam(m, os.path.join(_fresh(work, "thin"), "thin.bam"),
+                     [10000], recs)
+    cfg = m.readset.MmrConfig(readlen_threshold=10, min_mapq=10)
+    py = _window_check("window_coverage_gate", m, mods, bam,
+                       [("c1", 150, 160)], cfg)
+    _need(py[0]["reads"] == [], "window_coverage_gate: reads kept")
+    return py
+
+
+def _check_window_duplicate_qname(work, mods=None):
+    """test_window_native.py:188: a read name twice in a window raises."""
+    m = mods or port_modules()
+    seq = "ACGCGTACGCGTACGCGTAC"
+    recs = [m.records.make_record(
+        "same", 0, 100 + i, seq, [("M", 20)], mapq=60,
+        tags=[("MM", "Z", "C+m,0;"), ("ML", "B:C", [250])])
+        for i in range(2)]
+    bam = _write_bam(m, os.path.join(_fresh(work, "dup"), "dup.bam"),
+                     [10000], recs)
+    cfg = m.readset.MmrConfig(readlen_threshold=10, min_mapq=10)
+    py = _window_check("window_duplicate_qname", m, mods, bam,
+                       [("c1", 105, 110)], cfg)
+    _need(py[0][0] == "ValueError" and "duplicated read name" in py[0][1],
+          f"window_duplicate_qname: {py}")
+    return py
+
+
+def _mmr_fuzz(m, rng, trial, with_grid):
+    """One trial of test_window_native.py:205's fuzz: a site grid (a
+    backward one, with runs of equal starts, on odd trials) and 1-5 reads
+    with calls on it and off it."""
+    n_sites = int(rng.integers(2, 40))
+    pos = np.sort(rng.choice(np.arange(100, 100000, 7), size=n_sites,
+                             replace=False)).astype(np.uint32)
+    starts = pos.copy()
+    for i in range(1, n_sites):
+        if rng.random() < 0.3:
+            starts[i] = starts[i - 1]
+    starts = np.maximum.accumulate(starts)
+    if trial % 2 == 0:
+        starts = pos
+    lens = rng.integers(1, 6, size=n_sites).astype(np.uint8)
+    ms = m.methmer.Methmers(config=m.readset.MmrConfig(), n=n_sites,
+                            sites_real_poss=pos, sites_starts=starts,
+                            mmr_lens=lens)
+    reads = []
+    for i in range(int(rng.integers(1, 6))):
+        grid = np.unique(starts)
+        k = rng.integers(2, max(3, len(grid)))
+        sel = np.sort(rng.choice(grid, size=min(k, len(grid)),
+                                 replace=False))
+        extra = rng.choice(np.arange(50, 110000, 13), size=3, replace=False)
+        calls = np.unique(np.concatenate([sel, extra])).astype(np.uint32)
+        quals = rng.integers(0, 3, size=len(calls)).astype(np.uint8)
+        reads.append(m.readset.Read(
+            i=i, qname=f"r{i}", hp=0, strand=0, length=20000,
+            start_pos=int(calls[0]), end_pos=int(calls[-1]) + 1,
+            calls=calls, quals=quals))
+    return ms, reads
+
+
+def _check_mmr_extract(work, mods=None):
+    """test_window_native.py:205: each read's methmers on fuzzed site
+    grids, the batch walk against the Python walk (with the store's clamp
+    to the site array)."""
+    m = mods or port_modules()
+    U = m.readset.UINT32_MAX
+    rng = np.random.default_rng(1234)
+    py, nat = [], []
+    for trial in range(300):
+        ms, reads = _mmr_fuzz(m, rng, trial, True)
+        for r in reads:
+            mers, start = m.methmer._get_mmr_of_read_walk(r, ms)
+            if start != U and start + len(mers) > ms.n:
+                mers = mers[:ms.n - start]
+                start = start if mers else U
+            py.append((list(mers), start) if start != U else ([], U))
+        if mods is None:
+            calls = np.concatenate([r.calls for r in reads])
+            quals = np.concatenate([r.quals for r in reads])
+            call_n = np.asarray([len(r.calls) for r in reads],
+                                dtype=np.int32)
+            call_off = np.zeros(len(reads), dtype=np.int64)
+            np.cumsum(call_n[:-1], out=call_off[1:])
+            res = m.native.mmr_extract_reads(ms.sites_starts, ms.mmr_lens,
+                                             calls, quals, call_off, call_n)
+            _need(res is not None, "mmr_extract: the native walk failed")
+            for j in range(len(reads)):
+                o, n = int(res["off"][j]), int(res["n"][j])
+                nat.append((res["mers"][o:o + n].tolist(),
+                            int(res["start_i"][j])) if n else ([], U))
+    if mods is None:
+        _same("mmr_extract", py, nat)
+    return py
+
+
+def _check_store_mmr(work, mods=None):
+    """test_window_native.py:255: the methmers stored on the cis gap
+    window's reads, both directions (POMFRET_NO_NATIVE_MMR)."""
+    m = mods or port_modules()
+    bam, gs, ge, cfg = _cis_gap(work, m)
+    rs = m.readset.load_reads_given_interval(
+        m.bam.BamReader(bam), "chr1", gs, ge, m.readset.READBACK, cfg)
+
+    def stored(native):
+        out = []
+        for d in (0, 1):
+            ms = m.methmer.get_methmer_sites_and_ranges(rs, cfg, d)
+            with _environ(POMFRET_NO_NATIVE_MMR=None if native else "1"):
+                m.methmer.store_mmr_of_reads(rs, ms)
+            out.append([(r.mmr_n, r.mmr_start_i, None if r.mmr is None
+                         else r.mmr.tolist()) for r in rs.reads])
+            m.methmer.wipe_mmr_of_reads(rs)
+        return out
+
+    py = stored(False)
+    _need(sum(t[0] > 0 for t in py[0]) > 100, "store_mmr: no methmers")
+    if mods is None:
+        _same("store_mmr", py, stored(True))
+    return py
+
+
+def _haptags(m, bam, chrom, variants, native):
+    """pre_haplotagging_read_in_one_ref's tags by read name
+    (POMFRET_NO_NATIVE_VARHAPTAG), or what it raised."""
+    out = {}
+    with _environ(POMFRET_NO_NATIVE_VARHAPTAG=None if native else "1"):
+        return _raised(lambda: m.varhaptag.pre_haplotagging_read_in_one_ref(
+            m.bam.BamReader(bam), chrom, variants, out) or out)
+
+
+def _varhaptag_check(name, m, mods, bam, chrom, variants):
+    py = _haptags(m, bam, chrom, variants, False)
+    if mods is None:
+        _need(m.native.native_available(), f"{name}: no native library")
+        _same(name, py, _haptags(m, bam, chrom, variants, True))
+    return py
+
+
+def _check_varhaptag(work, mods=None):
+    """test_window_native.py:290: every read of the untagged scenario
+    tagged from the VCF's phased variants."""
+    m = mods or port_modules()
+    files = scenario_files("untagged", os.path.join(work, "untagged"))
+    vbc = {}
+    m.intervals_loader.load_intervals_from_file(
+        files["vcf"], m.intervals_loader.IS_VCF, m.Storage(),
+        load_vcf_variants_too=True,
+        haptag_callback=lambda c, v: vbc.__setitem__(c, v))
+    py = _varhaptag_check("varhaptag", m, mods, files["bam"], "chr1",
+                          vbc["chr1"])
+    _need(len(py) > 400 and sum(v in (0, 1) for v in py.values()) > 300,
+          "varhaptag: too few reads tagged")
+    return py
+
+
+def _check_varhaptag_edges(work, mods=None):
+    """test_window_native.py:305: an invalid MD raises on both routes;
+    without it, SNPs, indels, clips, a secondary read skipped."""
+    m = mods or port_modules()
+    X = m.variants.VAR_OP_X
+    seq = "ACGTACGTACGTACGTACGT"
+    mk = m.records.make_record
+    recs = [
+        mk("r_snp", 0, 100, seq, [("M", 20)], mapq=60,
+           tags=[("MD", "Z", "5A14")]),
+        mk("r_del", 0, 130, seq, [("M", 10), ("D", 3), ("M", 10)], mapq=60,
+           tags=[("MD", "Z", "10^GCA10")]),
+        mk("r_ins", 0, 160, seq, [("M", 8), ("I", 4), ("M", 8)], mapq=60,
+           tags=[("MD", "Z", "16")]),
+        mk("r_badmd", 0, 190, seq, [("M", 20)], mapq=60,
+           tags=[("MD", "Z", "5?14")]),
+        mk("r_sec", 0, 200, seq, [("M", 20)], flag=256, mapq=60,
+           tags=[("MD", "Z", "20")]),
+        mk("r_clip", 0, 220, seq, [("S", 3), ("M", 14), ("S", 3)], mapq=60,
+           tags=[("MD", "Z", "2C11")]),
+    ]
+    kv = [m.variants.Variant(105, X, 1, (0,), 0),
+          m.variants.Variant(133, X, 1, (2,), 1),
+          m.variants.Variant(222, X, 1, (1,), 0)]
+    d = _fresh(work, "vh")
+    bad = _write_bam(m, os.path.join(d, "vh.bam"), [10000], recs)
+    good = _write_bam(m, os.path.join(d, "vh2.bam"), [10000],
+                      [r for r in recs if r.qname != "r_badmd"])
+    py = [_varhaptag_check("varhaptag_edges", m, mods, p, "c1", kv)
+          for p in (bad, good)]
+    _need(py[0][0] == "ValueError" and set(py[1]) == {
+        "r_snp", "r_del", "r_ins", "r_clip"}, f"varhaptag_edges: {py}")
+    return py
+
+
+def _check_varhaptag_missing_md(work, mods=None):
+    """test_window_native.py:352: a read without MD raises on both
+    routes."""
+    m = mods or port_modules()
+    bam = _write_bam(m, os.path.join(_fresh(work, "vh3"), "vh3.bam"),
+                     [10000], [m.records.make_record(
+                         "no_md", 0, 100, "ACGTACGTAC", [("M", 10)],
+                         mapq=60, tags=[("HP", "C", 1)])])
+    py = _varhaptag_check("varhaptag_missing_md", m, mods, bam, "c1",
+                          [m.variants.Variant(105, m.variants.VAR_OP_X, 1,
+                                              (0,), 0)])
+    _need(py[0] == "ValueError" and "lacks MD tag" in py[1],
+          f"varhaptag_missing_md: {py}")
+    return py
+
+
+def _chrom_source_check(name, m, mods, bam, windows, cfg, raw=None,
+                        **src_kw):
+    """Windows sliced from one whole-chromosome decode (ChromReadSource)
+    against the Python loader's per-window loads."""
+    py = _windows(m, bam, windows, cfg, raw)
+    if mods is None:
+        rd = m.bam.BamReader(bam)
+        srcs = {}
+        got = []
+        for chrom, s, e in windows:
+            if chrom not in srcs:
+                srcs[chrom] = m.readset.ChromReadSource(rd, chrom, cfg,
+                                                        **src_kw)
+                _need(srcs[chrom].ok, f"{name}: no source for {chrom}")
+            got.append(_snap(srcs[chrom].window(s, e, m.readset.READBACK,
+                                                raw)))
+        _same(name, py, got)
+    return py
+
+
+def _check_chrom_source(work, mods=None):
+    """test_window_native.py:375: segments of 13 kb, five windows, the
+    haplotags given by read name, an unknown chromosome."""
+    m = mods or port_modules()
+    bam, gs, ge, cfg = _cis_gap(work, m)
+    windows = [("chr1", s, e) for s, e in (
+        (gs, ge), (gs - 7000, ge + 9000), (100, 9000), (180_000, 199_000),
+        (0, 200_000))] + [("chrMissing", gs, ge)]
+    py = _chrom_source_check("chrom_source", m, mods, bam, windows, cfg,
+                             seg_len=13_000)
+    raw = {r[0]: i % 3 for i, r in enumerate(py[0]["reads"])}
+    py.append(_chrom_source_check("chrom_source", m, mods, bam,
+                                  [("chr1", gs, ge)], cfg, raw,
+                                  seg_len=13_000))
+    return py
+
+
+def _check_chrom_source_regions(work, mods=None):
+    """test_window_native.py:481: a source over the union of three
+    windows' halos; no record decoded twice."""
+    m = mods or port_modules()
+    bam, gs, ge, cfg = _cis_gap(work, m)
+    R = m.readset.READBACK
+    windows = [(gs, ge), (10_000, 15_000), (170_000, 176_000)]
+    regions = []
+    for lo, hi in sorted((max(s - R - 1, 0), e + R) for s, e in windows):
+        if regions and lo <= regions[-1][1]:
+            regions[-1][1] = max(regions[-1][1], hi)
+        else:
+            regions.append([lo, hi])
+    if mods is None:
+        src = m.readset.ChromReadSource(m.bam.BamReader(bam), "chr1", cfg,
+                                        seg_len=13_000, regions=regions)
+        _need(src.ok and len(set(zip(src.pos.tolist(), src.qnames)))
+              == len(src.pos) and bool(np.all(np.diff(src.pos) >= 0)),
+              "chrom_source_regions: records decoded twice or unsorted")
+    return _chrom_source_check("chrom_source_regions", m, mods, bam,
+                               [("chr1", s, e) for s, e in windows], cfg,
+                               seg_len=13_000, regions=regions)
+
+
+def _cli_outputs(m, argv, prefix, exts, **env):
+    """m's CLI run with these variables set (None: unset), and the bytes of
+    each output. Modules given no native library (m.native None: the JAX
+    package's, in tests/test_torch_units_native.py) take every Python
+    route that has a switch (PYTHON_ROUTES)."""
+    if m.native is None:
+        env = {**PYTHON_ROUTES, **env}
+    with _environ(**env):
+        rc = m.cli_main([argv[0], "-o", prefix, *argv[1:]])
+    _need(rc == 0, f"{' '.join(argv)} exited {rc}")
+    out = {}
+    for ext in exts:
+        with open(prefix + ext, "rb") as f:
+            out[ext] = f.read()
+    return out
+
+
+def _check_chrom_scan(work, mods=None):
+    """test_window_native.py:409: methphase on the cis scenario, its windows
+    sliced from whole-chromosome decodes (the batched engines' default)
+    against per-window loads (POMFRET_NO_CHROM_SCAN)."""
+    m = mods or port_modules()
+    files = scenario_files("cis", os.path.join(work, "cis"))
+    d = _fresh(work, "scan")
+    argv = ["methphase", "--engine", m.engine, "-c", "50", "--vcf",
+            files["vcf"], files["bam"]]
+    exts = (".mp.gtf", ".mp.vcf")
+    py = _cli_outputs(m, argv, os.path.join(d, "win"), exts,
+                      POMFRET_NO_CHROM_SCAN="1")
+    if mods is None:
+        _same("chrom_scan", py, _cli_outputs(
+            m, argv, os.path.join(d, "scan"), exts,
+            POMFRET_NO_CHROM_SCAN=None))
+    return py
+
+
+def _check_mer_grid(work, mods=None):
+    """test_window_native.py:446: the dense methmer-id grid, native against
+    numpy, on fuzzed rows with repeated (row, site) writes."""
+    import random
+    m = mods or port_modules()
+    rng = random.Random(99)
+    py, nat = [], []
+    for _ in range(40):
+        n_reads = rng.randint(1, 40)
+        S = rng.randint(1, 60)
+        R = n_reads + rng.randint(0, 8)
+        SP = S + rng.randint(0, 16)
+        perm = list(range(n_reads))
+        rng.shuffle(perm)
+        inv_perm = np.empty(n_reads, dtype=np.int64)
+        for dev_row, orig in enumerate(perm):
+            inv_perm[orig] = dev_row
+        rows, lens, starts, mers = [], [], [], []
+        for r in range(n_reads):
+            if rng.random() < 0.3:
+                continue
+            ln = rng.randint(1, min(S, 12))
+            rows.append(r)
+            lens.append(ln)
+            starts.append(rng.randint(0, S - ln))
+            mers.extend(rng.randint(0, 6) for _ in range(ln))
+        rows, lens, starts = (np.asarray(a, dtype=np.int64)
+                              for a in (rows, lens, starts))
+        mers_a = np.asarray(mers, dtype=np.uint32)
+        offs = np.zeros(len(rows), dtype=np.int64)
+        if len(rows) > 1:
+            np.cumsum(lens[:-1], out=offs[1:])
+        ids, has, dmax = m.grid_from_arrays(rows, lens, starts, mers_a,
+                                            inv_perm, R, SP)
+        py.append((ids.astype(np.int32).tolist(), has.tolist(), dmax))
+        if mods is None:
+            res = m.native.mer_grid_fill(rows, lens, starts, offs, mers_a,
+                                         inv_perm, R, SP)
+            _need(res is not None, "mer_grid: the native fill failed")
+            nat.append((res[0].astype(np.int32).tolist(), res[1].tolist(),
+                        res[2]))
+    if mods is None:
+        _same("mer_grid", py, nat)
+    return py
+
+
+def _check_coverage(work, mods=None):
+    """test_coverage.py: the whole-BAM coverage estimate from the columnar
+    scan against the record loop."""
+    m = mods or port_modules()
+    bam = scenario_files("cis", os.path.join(work, "cis"))["bam"]
+    rd = m.bam.BamReader(bam)
+    rd.scan_columns = lambda: (None, None)
+    py = m.pipeline.estimate_read_coverage_dirtyfast(rd)
+    _need(py[0] > 10, f"coverage: {py}")
+    if mods is None:
+        _need(m.bam.BamReader(bam).scan_columns()[0] is not None,
+              "coverage: the native scan failed")
+        _same("coverage", py, m.pipeline.estimate_read_coverage_dirtyfast(
+            m.bam.BamReader(bam)))
+    return py
+
+
+def _check_rans4x8(work, mods=None):
+    """test_cram.py:560: rANS 4x8 streams of orders 0 and 1 decoded."""
+    import random
+    m = mods or port_modules()
+    rng = random.Random(99)
+    py, nat = [], []
+    for data in (bytes(rng.choices(b"ACGT", k=70001)),
+                 bytes(rng.choices(range(256), k=4096)),
+                 b"\x00" * 513, b"Q" * 3):
+        for order in (0, 1):
+            c = m.rans4x8.compress(data, order)
+            got = m.rans4x8.uncompress(c)
+            _need(got == data, f"rans4x8: order {order} lost the data")
+            py.append(got)
+            if mods is None:
+                nat.append(m.native.rans4x8_uncompress(c, len(data)))
+    if mods is None:
+        _same("rans4x8", py, nat)
+        c = m.rans4x8.compress(b"hello world" * 10, 0)
+        # a corrupt stream fails cleanly, without a crash
+        m.native.rans4x8_uncompress(c[:9] + bytes([255]) * (len(c) - 9),
+                                    110)
+    return py
+
+
+def _spool_bytes(m, cram, d, native):
+    """The BAM spool of a CRAM and its index, transcoded by the native
+    slice decoder or the Python record loop (POMFRET_NO_NATIVE_CRAM)."""
+    m.cram._SPOOL_CACHE.clear()
+    os.makedirs(d, exist_ok=True)
+    try:
+        with _environ(POMFRET_SPOOL_DIR=d,
+                      POMFRET_NO_NATIVE_CRAM=None if native else "1"):
+            p = m.cram.spool_path(cram)
+        with open(p, "rb") as f, open(p + ".bai", "rb") as g:
+            return f.read(), g.read()
+    finally:
+        m.cram._SPOOL_CACHE.clear()
+
+
+def _spool_check(name, m, mods, crams, d):
+    py = [_spool_bytes(m, c, os.path.join(d, f"py{i}"), False)
+          for i, c in enumerate(crams)]
+    if mods is None:
+        _need(m.native.native_available(), f"{name}: no native library")
+        _same(name, py, [_spool_bytes(m, c, os.path.join(d, f"nat{i}"),
+                                      True) for i, c in enumerate(crams)])
+    return py
+
+
+def _check_cram_spool(work, mods=None):
+    """test_cram.py:455: the cram scenario's CRAM (reference embedded, 200
+    records a slice) transcoded to a BAM spool, index included."""
+    m = mods or port_modules()
+    cram = scenario_files("cram", os.path.join(work, "cram"))["cram"]
+    return _spool_check("cram_spool", m, mods, [cram],
+                        _fresh(work, "spool"))
+
+
+def fuzz_bam(m, path: str, seed: int, n: int, tail_clip: bool) -> list:
+    """tests/test_cram.py's fuzzed records, n on each of two chromosomes
+    (cA, cB), written as a BAM at `path` with m's writer: mixed CIGARs
+    (S/I/D/N/H; with `tail_clip`, as test_cram.py:368 draws them, also a
+    trailing S and P), IUPAC bases, every aux type, paired, detached and
+    unmapped reads. Returns the records."""
+    import random
+    rng = random.Random(seed)
+    recs = []
+    for tid in (0, 1):
+        pos = 100
+        for k in range(n):
+            L = rng.randint(30, 300)
+            cig = []
+            left = L
+            if rng.random() < 0.3:
+                s = rng.randint(1, min(10, left - 1))
+                cig.append(("S", s))
+                left -= s
+            m1 = rng.randint(1, left)
+            cig.append(("M", m1))
+            left -= m1
+            while left > 0:
+                op = rng.choice(["M", "I", "D", "N", "M", "M"])
+                if op in ("M", "I"):
+                    n_op = rng.randint(1, left)
+                    left -= n_op
+                else:
+                    n_op = rng.randint(1, 50)
+                if cig and cig[-1][0] == op:  # decode canonicalizes runs
+                    cig[-1] = (op, cig[-1][1] + n_op)
+                else:
+                    cig.append((op, n_op))
+            if tail_clip and rng.random() < 0.2 and cig[-1][0] != "S":
+                cig.append(("S", 3))
+            if rng.random() < 0.15:
+                cig.insert(0, ("H", rng.randint(1, 5)))
+            if tail_clip and rng.random() < 0.1:
+                cig.append(("P", 2))
+            L = sum(n_op for op, n_op in cig if op in ("M", "I", "S", "=",
+                                                       "X"))
+            seq = "".join(rng.choices("ACGTNRYKM",
+                                      weights=[8, 8, 8, 8, 1, 1, 1, 1, 1],
+                                      k=L))
+            flag = rng.choice([0, 16, 1 | 32, 1 | 16 | 8, 4])
+            if flag & 4:
+                cig = []
+            tags = [("HP", "i", rng.randint(1, 2)),
+                    ("de", "f", rng.random() / 10),
+                    ("XA", "A", rng.choice("xyz")),
+                    ("XB", "B:S", [rng.randint(0, 65535) for _ in range(3)]),
+                    ("XZ", "Z", "s" * rng.randint(0, 5))]
+            r = m.records.make_record(f"{'fz' if tail_clip else 'nf'}"
+                                      f"{tid}_{k}", tid, pos, seq, cig,
+                                      flag=flag, mapq=rng.randint(0, 60),
+                                      tags=tags)
+            if flag & 1:
+                r.next_refID = tid
+                r.next_pos = pos + 500
+                r.tlen = rng.randint(-1000, 1000)
+            recs.append(r)
+            pos += rng.randint(10, 120)
+    with m.bam_writer.BamWriter(path, ["cA", "cB"], [50_000, 30_000]) as w:
+        for r in recs:
+            w.write(r)
+    return recs
+
+
+def _check_cram_spool_fuzz(work, mods=None):
+    """test_cram.py:480: fuzzed records in three CRAM modes (reference
+    embedded, no reference, 'B' features), 37 records a slice."""
+    m = mods or port_modules()
+    d = _fresh(work, "spoolfuzz")
+    bam = os.path.join(d, "nf.bam")
+    fuzz_bam(m, bam, 777, 80, tail_clip=False)
+    crams = []
+    for i, mode in enumerate(({"embed_ref": True}, {"no_ref": True},
+                              {"embed_ref": True, "feature_style": "B"})):
+        crams.append(os.path.join(d, f"nf{i}.cram"))
+        m.cram_writer.bam_to_cram(bam, crams[-1], records_per_slice=37,
+                                  **mode)
+    return _spool_check("cram_spool_fuzz", m, mods, crams, d)
+
+
+def _check_cram_spool_paths(work, mods=None):
+    """test_cram.py:264: methphase --write-bam on the cram scenario's CRAM,
+    the coverage estimated: window loads, the coverage scan and the retag
+    on the BAM spool against the Python CRAM paths (POMFRET_NO_CRAM_SPOOL,
+    POMFRET_NO_NATIVE_RETAG); one spool made."""
+    m = mods or port_modules()
+    files = scenario_files("cram", os.path.join(work, "cram"))
+    argv = ["methphase", "--engine", m.engine, "--vcf", files["vcf"],
+            "--write-bam", files["cram"]]
+    exts = (".mp.gtf", ".mp.vcf", ".mp.bam", ".mp.bam.bai")
+    m.cram._SPOOL_CACHE.clear()
+    d = _fresh(work, "paths")
+    py = _cli_outputs(m, argv, os.path.join(d, "python"), exts,
+                      POMFRET_SPOOL_DIR=d, POMFRET_NO_CRAM_SPOOL="1",
+                      POMFRET_NO_NATIVE_RETAG="1")
+    if mods is None:
+        sd = os.path.join(d, "spool")
+        os.makedirs(sd)
+        _same("cram_spool_paths", py, _cli_outputs(
+            m, argv, os.path.join(d, "native"), exts, POMFRET_SPOOL_DIR=sd,
+            POMFRET_NO_CRAM_SPOOL=None, POMFRET_NO_NATIVE_RETAG=None))
+        spools = [f for f in os.listdir(sd)
+                  if f.startswith("pomfret_spool_") and f.endswith(".bam")]
+        _need(len(spools) == 1, f"cram_spool_paths: spools {spools}")
+        m.cram._SPOOL_CACHE.clear()
+    return py
+
+
+def _check_cram_varhaptag_spool(work, mods=None):
+    """test_cram.py:300: varhaptag on the cram scenario's CRAM, the native
+    retag on its BAM spool against the Python record loop
+    (POMFRET_NO_CRAM_SPOOL)."""
+    m = mods or port_modules()
+    files = scenario_files("cram", os.path.join(work, "cram"))
+    argv = ["varhaptag", files["vcf"], files["cram"]]
+    exts = ("", ".bai", ".varhaptag.tsv")
+    m.cram._SPOOL_CACHE.clear()
+    d = _fresh(work, "vhspool")
+    py = _cli_outputs(m, argv, os.path.join(d, "py.bam"), exts,
+                      POMFRET_SPOOL_DIR=d, POMFRET_NO_CRAM_SPOOL="1")
+    if mods is None:
+        _same("cram_varhaptag_spool", py, _cli_outputs(
+            m, argv, os.path.join(d, "nat.bam"), exts, POMFRET_SPOOL_DIR=d,
+            POMFRET_NO_CRAM_SPOOL=None))
+        m.cram._SPOOL_CACHE.clear()
+    return py
+
+
+# name -> check(work, mods=None), in the order of the JAX package's tests
+NATIVE_CHECKS = {
+    "bgzf_inflate": _check_bgzf_inflate,
+    "bgzf_deflate": _check_bgzf_deflate,
+    "bam_scan": _check_bam_scan,
+    "meth_decode": _check_meth_decode,
+    "site_select": _check_site_select,
+    "window_realistic": _check_window_realistic,
+    "window_raw_tag": _check_window_raw_tag,
+    "window_edges": _check_window_edges,
+    "window_coverage_gate": _check_window_coverage_gate,
+    "window_duplicate_qname": _check_window_duplicate_qname,
+    "mmr_extract": _check_mmr_extract,
+    "store_mmr": _check_store_mmr,
+    "varhaptag": _check_varhaptag,
+    "varhaptag_edges": _check_varhaptag_edges,
+    "varhaptag_missing_md": _check_varhaptag_missing_md,
+    "chrom_source": _check_chrom_source,
+    "chrom_scan": _check_chrom_scan,
+    "mer_grid": _check_mer_grid,
+    "chrom_source_regions": _check_chrom_source_regions,
+    "coverage": _check_coverage,
+    "rans4x8": _check_rans4x8,
+    "cram_spool": _check_cram_spool,
+    "cram_spool_fuzz": _check_cram_spool_fuzz,
+    "cram_spool_paths": _check_cram_spool_paths,
+    "cram_varhaptag_spool": _check_cram_varhaptag_spool,
+}
+
+
+def run_native_checks(work: str) -> dict:
+    """Every NATIVE_CHECKS entry on this process's native library, in
+    work: {name: seconds}. Raises on the first that fails, or where the
+    library did not load."""
+    from .io import native
+    _need(native.native_available(), "the native library did not load")
+    secs = {}
+    for name in NATIVE_CHECKS:
+        t0 = time.perf_counter()
+        NATIVE_CHECKS[name](work)
+        secs[name] = time.perf_counter() - t0
+    return secs
+
+
+# every switch that sends a host route with a native counterpart to its
+# Python route (window loads, methmers, site selection, the CRAM slice
+# decoder and spool, varhaptag, the retag, whole-chromosome scans);
+# BGZF inflate and deflate have none
+PYTHON_ROUTES = {k: "1" for k in (
+    "POMFRET_NO_NATIVE_WINDOW", "POMFRET_NO_NATIVE_MMR",
+    "POMFRET_NO_NATIVE_SITES", "POMFRET_NO_NATIVE_CRAM",
+    "POMFRET_NO_NATIVE_VARHAPTAG", "POMFRET_NO_NATIVE_RETAG",
+    "POMFRET_NO_CHROM_SCAN", "POMFRET_NO_CRAM_SPOOL")}
+

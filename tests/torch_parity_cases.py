@@ -18,8 +18,9 @@ from pomfret_tpu_torch.cli import main as port_main
 from pomfret_tpu_torch.io.native import native_available
 from pomfret_tpu_torch.parallel.batch import DISPATCH_STATS
 from pomfret_tpu_torch.testing import (PARITY_RUNS, PARITY_SCENARIOS,
-                                       parity_diffs, parity_outputs,
-                                       parity_run)
+                                       Spawned, parity_diffs,
+                                       parity_outputs, parity_run,
+                                       scenario_files)
 
 PORT_ENGINES = ("torch", "host")
 
@@ -35,6 +36,14 @@ JAX_ENGINE = {
 
 def make_files(tmp_path_factory, scenario):
     return PARITY_SCENARIOS[scenario](str(tmp_path_factory.mktemp(scenario)))
+
+
+def make_all(tmp_path_factory, scenarios):
+    """{scenario: its files}, the scenarios made at once, each in a
+    process of its own."""
+    procs = {s: Spawned(scenario_files, s, str(tmp_path_factory.mktemp(s)))
+             for s in scenarios}
+    return {s: p.result(timeout=600) for s, p in procs.items()}
 
 
 def _side(main, name, files, tmp_path_factory, engine, **kw):
