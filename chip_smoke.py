@@ -13,10 +13,13 @@
     python3 chip_smoke.py --only-dense     # card, build and phase 10 only,
                                            # with its malloc A/B (no
                                            # result line)
-    python3 chip_smoke.py --only-scale N   # card, build, the BENCH_SCALE=N
-                                           # set made, methphase cuda ==
-                                           # torch on it and phase 11 on it
-                                           # (no result line)
+    python3 chip_smoke.py --only-scale N [--trees NAME=DIR[@scan|@cached],...]
+                                           # card, build, the BENCH_SCALE=N
+                                           # set made, SCALE_RUNS on it,
+                                           # each with its memory timeline
+                                           # (each DIR's methphase too),
+                                           # and phase 11 on it (no result
+                                           # line)
 
 Phases, each printing one line:
  1. card: the GPU's name and power limit (nvidia-smi);
@@ -177,9 +180,10 @@ Phases, each printing one line:
     of R 1792, S 1536, D >= 32 and nc_cap 64 was packed and the loop
     kernel ran at that shape with its count table in global memory; each
     run's wall, stage seconds, window reads, packed shapes, loop-kernel
-    lanes by placement and row route, peak RSS and launches, counted from
-    zero; run_gap cuda == the host oracle on the first dense gap (the
-    oracle's wall); the loop kernel alone on methphase's own batch (every
+    lanes by placement and row route, peak RSS, pinned host memory and
+    launches, counted from zero; fails where a cuda run peaks more than 1
+    GiB above its torch run; run_gap cuda == the host oracle on the first
+    dense gap (the oracle's wall); the loop kernel alone on methphase's own batch (every
     gap packed as methphase packs them, checked to be the shape it
     packed), == loop_plain, its device time, iterations, loop_bound and
     its launches at that shape in the runs above;
@@ -1306,14 +1310,51 @@ def shape_key(s):
     return s["G"], s["R"], s["S"], s["D"], s["nc_cap"]
 
 
+def pinned_mib(stats=None):
+    """This process's pinned host memory, MiB: what PyTorch's caching host
+    allocator holds (reserved: its blocks in use and cached) and has in
+    use, and the uploads' staging buffers (parallel.batch._Staging)."""
+    import torch
+    from pomfret_tpu_torch.parallel.batch import staging_bytes
+    if stats is None:
+        stats = (torch.cuda.host_memory_stats()
+                 if torch.cuda.is_initialized() else {})
+    return dict(reserved=stats.get("allocated_bytes.current", 0) / MIB,
+                reserved_peak=stats.get("allocated_bytes.peak", 0) / MIB,
+                in_use=stats.get("active_bytes.current", 0) / MIB,
+                staging=staging_bytes() / MIB)
+
+
+MIB = float(1 << 20)
+
+
 def _run_alone(dev, cmd, args):
+    import torch
+    from pomfret_tpu_torch.parallel.batch import DISPATCH_STATS
+    from pomfret_tpu_torch.testing import RssTimeline
     from pomfret_tpu_torch.tools.accuracy_scale import counted
-    from pomfret_tpu_torch.utils import malloc_tune
+    from pomfret_tpu_torch.utils import malloc_tune, stats
     zero_counts()
-    rc, wall, row = counted(lambda: cli_main([cmd, *args]), dev)
+    DISPATCH_STATS["groups_in_flight_max"] = 0
+
+    def pinned():
+        p = pinned_mib()
+        return round(p["reserved"] + p["staging"], 1)
+    stats.record_stage_events()
+    with RssTimeline(gauges={
+            "groups_in_flight": lambda: DISPATCH_STATS["groups_in_flight"],
+            "pinned_mib": pinned}) as tl:
+        rc, wall, row = counted(lambda: cli_main([cmd, *args]), dev)
+    memory = tl.record(stats.STAGE_EVENTS)
+    stats.record_stage_events(False)
     check(rc == 0, f"{cmd} {' '.join(args)} exited {rc}")
+    on_card = dev.type == "cuda"
     return dict(row, wall_s=wall, kernel_launches=read_counts(),
-                malloc_tuned=malloc_tune._done)
+                malloc_tuned=malloc_tune._done, memory=memory,
+                groups_in_flight_max=DISPATCH_STATS["groups_in_flight_max"],
+                pinned_mib=pinned_mib() if on_card else None,
+                device_reserved_max_mib=(torch.cuda.max_memory_reserved()
+                                         / MIB if on_card else None))
 
 
 def run_alone(dev, cmd, args, env=(), timeout=600):
@@ -1322,7 +1363,11 @@ def run_alone(dev, cmd, args, env=(), timeout=600):
     there (tools.accuracy_scale.counted): its wall, stage seconds, window
     reads, packed shapes, loop-kernel lanes and shapes, peak RSS, each
     kernel's launches, and whether utils/malloc_tune.py's thresholds were
-    set."""
+    set; its memory timeline (testing.RssTimeline: VmRSS every 0.1 s with
+    the groups in flight and the pinned MiB, beside the run's stage events,
+    and testing.memory_by_stage's peaks by stage and chromosome), its most
+    groups in flight, and at its end its pinned host memory (pinned_mib)
+    and the card's most reserved device memory."""
     from pomfret_tpu_torch.testing import Spawned
     return Spawned(_run_alone, dev, cmd, args, env=env).result(
         timeout=timeout)
@@ -1402,6 +1447,12 @@ def phase_dense(dev, made, work, malloc_ab=False):
             check(runs[f"{cmd}_{name}"]["malloc_tuned"] == (not env),
                   f"{cmd} {name}: malloc thresholds set "
                   f"{runs[f'{cmd}_{name}']['malloc_tuned']}")
+    for cmd in ("report", "methphase"):
+        c, t = runs[f"{cmd}_cuda"], runs[f"{cmd}_torch"]
+        check(c["peak_rss_mib"] <= t["peak_rss_mib"] + 1024,
+              f"dense {cmd}: --engine cuda peaked at {c['peak_rss_mib']:.0f}"
+              f" MiB, more than 1 GiB above --engine torch's "
+              f"{t['peak_rss_mib']:.0f}")
     counts, _ = report_counts(os.path.join(d, "report_cuda.report.tsv"))
     check(counts["switch"] == 0, f"dense report: {counts}")
     dec = decisions(os.path.join(d, "methphase_cuda"))
@@ -1477,7 +1528,13 @@ def say_run(phase, name, r, card):
                     f"nc={s['nc_cap']} x{s['launches']} shared "
                     f"{'+'.join(s['shared']) or 'none'}"
                     for s in r["loop_kernel"]["shapes"])
-        + f"; stages {r['stages']}; {card}")
+        + f"; stages {r['stages']}"
+        + ("" if not r.get("pinned_mib") else
+           f"; pinned host memory: caching allocator "
+           f"{r['pinned_mib']['reserved']:.0f} MiB reserved "
+           f"({r['pinned_mib']['in_use']:.0f} in use), staging "
+           f"{r['pinned_mib']['staging']:.0f} MiB")
+        + f"; {card}")
 
 
 def _profile_tool(name, argv, out):
@@ -1520,36 +1577,197 @@ def say_profile_tools(phase, pt, card):
         f"{card}")
 
 
-def phase_scale(dev, scale, work, report):
+# One methphase or report run of another tree (e.g. the parent commit
+# unpacked by git archive), from that tree's root, for --only-scale
+# --trees: the card and both libraries made ready first, then the CLI
+# with every stage's seconds logged as an event (utils.stats.add_stage
+# wrapped: (name, None, entry, exit) on time.perf_counter(), the clock of
+# this script's RssTimeline, which reads the process's VmRSS from outside);
+# one TREE_RUN line.
+_TREE_RUN = r"""
+import json, os, sys, time
+sys.path.insert(0, os.getcwd())
+import torch
+from pomfret_tpu_torch.utils import stats
+events = []
+_add = stats.add_stage
+def add_stage(name, dt):
+    t1 = time.perf_counter()
+    events.append((name, None, t1 - dt, t1))
+    _add(name, dt)
+stats.add_stage = add_stage
+from pomfret_tpu_torch.cli import main
+from pomfret_tpu_torch.io import native
+from pomfret_tpu_torch.kernels import _build
+from pomfret_tpu_torch.parallel.batch import DISPATCH_STATS
+card = torch.cuda.is_available()
+if card:
+    torch.zeros(1, device="cuda")
+    _build.get_lib()
+native.native_available()
+del events[:]
+t0 = time.perf_counter()
+rc = main(sys.argv[1:])
+wall = time.perf_counter() - t0
+print("TREE_RUN " + json.dumps(dict(
+    rc=rc, wall_s=wall, t0=t0, events=events,
+    window_reads=DISPATCH_STATS["window_reads"],
+    kernel_launches=dict(DISPATCH_STATS["kernel_launches"]),
+    stages=stats.stage_report(3),
+    host_memory_stats=dict(torch.cuda.host_memory_stats()) if card else {},
+    device_reserved_max_mib=(torch.cuda.max_memory_reserved() / 2 ** 20
+                             if card else None))),
+    flush=True)
+"""
+
+
+def tree_run(tree, args, env=(), timeout=1800):
+    """methphase or report (args) from the root of `tree`, in a process of
+    its own with `env` added (_TREE_RUN), its VmRSS read from here every
+    0.1 s: its wall, window reads, launches, stage seconds, memory
+    timeline (testing.memory_by_stage by stage), pinned host memory and
+    the card's most reserved device memory at its end."""
+    from pomfret_tpu_torch.testing import RssTimeline
+    p = subprocess.Popen([sys.executable, "-c", _TREE_RUN, *args],
+                         cwd=tree, env={**os.environ, **dict(env)},
+                         stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                         text=True)
+    try:
+        with RssTimeline(status=f"/proc/{p.pid}/status") as tl:
+            out, err = p.communicate(timeout=timeout)
+    finally:
+        p.kill()
+        p.wait()
+    line = [x for x in out.splitlines() if x.startswith("TREE_RUN ")]
+    check(p.returncode == 0 and line, f"{' '.join(args)} in {tree} exited "
+          f"{p.returncode}: {err[-3000:]}")
+    got = json.loads(line[-1][len("TREE_RUN "):])
+    check(got["rc"] == 0, f"{' '.join(args)} in {tree} returned {got['rc']}")
+    events = [tuple(e) for e in got.pop("events")]
+    got["memory"] = tl.record(events, t0=got.pop("t0"))
+    got["pinned_mib"] = pinned_mib(got.pop("host_memory_stats"))
+    got["pinned_mib"]["staging"] = None
+    return got
+
+
+def _process_baseline(dev):
+    """VmRSS (MiB) of a fresh process as a run starts: at its start (torch
+    imported to receive `dev`), after `import torch`, after the card's
+    context, after the kernels' library and after the native IO
+    library."""
+    from pomfret_tpu_torch.testing import proc_status_mib
+    steps = []
+
+    def read(name):
+        steps.append(dict(step=name, rss_mib=proc_status_mib("VmRSS")))
+    read("start")
+    import torch
+    read("import torch")
+    torch.zeros(1, device=dev)
+    read("card context")
+    from pomfret_tpu_torch.kernels import _build
+    _build.get_lib()
+    read("kernels' library")
+    from pomfret_tpu_torch.io import native
+    native.native_available()
+    read("native IO library")
+    return steps
+
+
+# --only-scale's runs, each alone in its process, in this order: (name,
+# subcommand, engine, environment); the first scans the coverage (its
+# spool directory is new), every later one reads the cache it wrote
+SCALE_RUNS = (
+    ("cuda_scan", "methphase", ["cuda"], ()),
+    ("cuda", "methphase", ["cuda"], ()),
+    ("torch", "methphase", ["torch", "--device", "cuda"], ()),
+    ("cuda_no_prefetch", "methphase", ["cuda"], (("POMFRET_PREFETCH", "0"),)),
+    ("cuda_untuned", "methphase", ["cuda"], NO_TUNE),
+    ("report", "report", ["cuda"], ()))
+
+
+def phase_scale(dev, scale, work, report, trees=()):
     """--only-scale: the BENCH_SCALE=scale set made through the pool (its
-    seconds and peak RSS by chromosome); methphase --engine cuda and
-    --engine torch --device cuda on it, each in a spawned process of its
-    own, .mp.vcf/.mp.gtf/.mp.tsv byte for byte; then both profile tools on
-    the set. Each step lands in chiprun_out/chip_smoke_scale.json as soon
-    as it is done."""
+    seconds and peak RSS by chromosome); the SCALE_RUNS on it, each in a
+    spawned process of its own with its memory timeline (run_alone): the
+    methphase runs' .mp.vcf/.mp.gtf/.mp.tsv byte for byte, and the same
+    window reads; the cis report at the accuracy tool's stride (40 kb);
+    for each (name, tree, states) of `trees` (e.g. the parent commit) that
+    tree's methphase --engine cuda, scanning and then cached (tree_run),
+    or in the one state named, its outputs equal to this tree's; a fresh
+    process's VmRSS as a run starts (_process_baseline); then both
+    profile tools on the set. Each step lands in chiprun_out/
+    chip_smoke_scale.json as soon as it is done."""
     out = report["scale"] = dict(scale=scale, runs={})
     ((bam, vcf, n_gaps, made_s),), made = make_sets([scale_spec(scale)])
     out.update(gaps=n_gaps, dataset_s=made_s, making=made[0])
     write_report(report, "chip_smoke_scale.json")
-    for name, eng in (("cuda", ["cuda"]),
-                      ("torch", ["torch", "--device", "cuda"])):
-        out["runs"][name] = run_alone(dev, "methphase", [
-            "-o", os.path.join(work, name), "--engine", *eng,
-            "--output-tsv", "--vcf", vcf, bam], timeout=3000)
+    spool = (("POMFRET_SPOOL_DIR", os.path.join(work, "spool")),)
+    os.makedirs(spool[0][1])
+    for name, cmd, eng, env in SCALE_RUNS:
+        extra = (["--chunk-size", "50000", "--chunk-stride", "40000"]
+                 if cmd == "report" else ["--output-tsv"])
+        out["runs"][name] = run_alone(dev, cmd, [
+            "-o", os.path.join(work, name), "--engine", *eng, *extra,
+            "--vcf", vcf, bam], env=spool + env, timeout=3000)
         write_report(report, "chip_smoke_scale.json")
+    mp = [n for n, cmd, _, _ in SCALE_RUNS if cmd == "methphase"]
+    for name in mp[1:]:
+        same_outputs(os.path.join(work, "cuda_scan"),
+                     os.path.join(work, name),
+                     (".mp.vcf", ".mp.gtf", ".mp.tsv"))
+        check(out["runs"][name]["window_reads"]
+              == out["runs"]["cuda_scan"]["window_reads"],
+              f"{name}: window reads {out['runs'][name]['window_reads']}")
     dec = decisions(os.path.join(work, "cuda"))
     out["decisions"] = {k: dec.count(k) for k in (0, 1, -1)}
-    same_outputs(os.path.join(work, "cuda"), os.path.join(work, "torch"),
-                 (".mp.vcf", ".mp.gtf", ".mp.tsv"))
     out["cuda_equals_torch"] = True
     write_report(report, "chip_smoke_scale.json")
     check(out["runs"]["cuda"]["kernel_launches"]["loop_kernel"] > 0,
           "the scale run launched no loop kernel")
+    out["trees"] = {}
+    for tname, tree, states in trees:
+        out["trees"][tname] = dict(tree=tree, runs={})
+        tspool = (("POMFRET_SPOOL_DIR", os.path.join(work, f"spool_{tname}")),)
+        os.makedirs(tspool[0][1])
+        if states == ("cuda",):  # the cache this tree's scan would write
+            shutil.copytree(spool[0][1], tspool[0][1], dirs_exist_ok=True)
+        for name in states:
+            prefix = os.path.join(work, f"{tname}_{name}")
+            out["trees"][tname]["runs"][name] = got = tree_run(
+                os.path.abspath(tree), [
+                    "methphase", "-o", prefix, "--engine", "cuda",
+                    "--output-tsv", "--vcf", vcf, bam], env=tspool)
+            same_outputs(os.path.join(work, "cuda"), prefix,
+                         (".mp.vcf", ".mp.gtf", ".mp.tsv"))
+            check(got["window_reads"] == out["runs"]["cuda"]["window_reads"],
+                  f"{tname} {name}: window reads {got['window_reads']}")
+            write_report(report, "chip_smoke_scale.json")
+    from pomfret_tpu_torch.testing import Spawned
+    out["baseline"] = Spawned(_process_baseline, dev).result(timeout=600)
+    write_report(report, "chip_smoke_scale.json")
     out["profile_tools"] = phase_profile_tools(
         ["--scale", str(scale), "--data-root", ROOT],
         out["runs"]["cuda"]["window_reads"], f"_scale{scale}")
     write_report(report, "chip_smoke_scale.json")
     return out
+
+
+def say_memory(phase, name, r, card):
+    """A run's memory line: its timeline's peak, the stages open there, its
+    peaks by stage and by chromosome, its pinned host memory."""
+    m, pin = r["memory"], r["pinned_mib"] or {}
+    say(phase, f"{name} memory: timeline peak {m['peak_mib']:.0f} MiB at "
+        f"{m['peak_s']:.1f} s in {'+'.join(m['open_at_peak']) or 'no stage'}"
+        "; by stage " + ", ".join(f"{k} {v[0]:.0f}"
+                                  for k, v in sorted(m["by_stage"].items()))
+        + "; by chromosome " + ", ".join(
+            f"{k} {v:.0f}" for k, v in sorted(m["by_chrom"].items()))
+        + f"; outside every stage {m['outside_mib']}; pinned: caching "
+        f"allocator {pin.get('reserved', 0):.0f} MiB reserved "
+        f"({pin.get('in_use', 0):.0f} in use), staging "
+        f"{pin.get('staging')} MiB; groups in flight at most "
+        f"{r.get('groups_in_flight_max')}; {card}")
 
 
 def say_scale(sc, card):
@@ -1562,11 +1780,22 @@ def say_scale(sc, card):
         + ", ".join(f"chr{i + 1} {c['reads']} reads {c['seconds']:.1f} s "
                     f"peak RSS {c['peak_mib']:.0f} MiB"
                     for i, c in enumerate(m["chroms"])) + f"; {card}")
-    say("scale", f"methphase --engine cuda == --engine torch --device "
-        f"cuda (.mp.vcf/.mp.gtf/.mp.tsv); decisions {sc['decisions']}; "
-        f"{card}")
+    say("scale", "methphase: " + ", ".join(
+        n for n, cmd, _, _ in SCALE_RUNS if cmd == "methphase")
+        + f" all equal (.mp.vcf/.mp.gtf/.mp.tsv); decisions "
+        f"{sc['decisions']}; {card}")
     for name, r in sc["runs"].items():
         say_run("scale", name, r, card)
+        say_memory("scale", name, r, card)
+    for tname, t in sc["trees"].items():
+        for name, r in t["runs"].items():
+            say("scale", f"tree {tname} ({t['tree']}) {name}: wall "
+                f"{r['wall_s']:.2f} s, {r['window_reads']} window reads, "
+                f"outputs == this tree's; stages {r['stages']}; {card}")
+            say_memory("scale", f"tree {tname} {name}", r, card)
+    say("scale", "a fresh process's VmRSS as a run starts: "
+        + ", ".join(f"{b['step']} {b['rss_mib']:.0f} MiB"
+                    for b in sc["baseline"]) + f"; {card}")
     say_profile_tools("scale", sc["profile_tools"], card)
 
 
@@ -1918,8 +2147,18 @@ def main(argv=()):
         return 0
     if "--only-scale" in argv:  # a BENCH_SCALE=N set, no result line
         scale = int(argv[argv.index("--only-scale") + 1])
+        # NAME=DIR runs DIR's methphase scanning and cached, NAME=DIR@scan
+        # or NAME=DIR@cached only the one
+        trees = []
+        for t in (argv[argv.index("--trees") + 1].split(",")
+                  if "--trees" in argv else []):
+            name, tree = t.split("=", 1)
+            tree, _, only = tree.partition("@")
+            trees.append((name, tree, {"scan": ("cuda_scan",),
+                                       "cached": ("cuda",)}.get(
+                                           only, ("cuda_scan", "cuda"))))
         sc = phase_scale(dev, scale, tempfile.mkdtemp(prefix="chip_smoke_"),
-                         report)
+                         report, trees)
         say_scale(sc, card)
         return 0
     if "--only-probes" in argv:  # phase 3b alone, for quick chip calls

@@ -361,29 +361,74 @@ class BamReader:
         """Stream every record in file order (the sam_itr_querys('.') path)."""
         return self._iter_from(self._data_voffset)
 
-    def scan_columns(self):
-        """Columnar whole-file scan via the C++ fast path: returns
-        (cols dict, decompressed buffer) or (None, None) when unavailable.
-        cols has rec_off/refID/pos/flag/mapq/l_seq/endpos/hp/de arrays."""
+    SCAN_CHUNK = 256 << 20  # plain bytes scan_columns inflates at a time
+
+    def scan_columns(self, chunk_bytes: int = SCAN_CHUNK):
+        """Columnar whole-file scan via the C++ fast path: returns (cols,
+        None), or (None, None) when unavailable. cols has rec_off/refID/
+        pos/flag/mapq/l_seq/endpos/hp/de arrays, rec_off the record's
+        offset in the file's plain stream. The file is inflated and scanned
+        about `chunk_bytes` of plain data at a time, a record that crosses
+        a chunk's end carried into the next, so the scan holds one chunk
+        and the columns, not the whole plain file (which the JAX package's
+        scan inflates at once); its columns, and where it stops or gives
+        up, are those of one scan over the whole file."""
         try:
             from . import native
         except ImportError:
             return None, None
         if not native.native_available():
             return None, None
-        buf = self._bgzf.read_all()
-        offs, sizes = self._bgzf.block_offsets()
         import numpy as _np
-        plain_of_block = dict(zip(offs, _np.concatenate([[0], _np.cumsum(sizes)[:-1]]).astype(int))) if offs else {}
+        comp = self._bgzf._raw
+        table = native.bgzf_block_table(comp)
+        if table is None:
+            return None, None
+        offs, isize = table
+        plain0 = _np.concatenate([[0], _np.cumsum(isize)])
         v = self._data_voffset
-        blk = v >> 16
-        if blk not in plain_of_block:
+        b = int(_np.searchsorted(offs, v >> 16))
+        if b >= len(offs) or offs[b] != v >> 16:
             return None, None
-        start_plain = plain_of_block[blk] + (v & 0xFFFF)
-        cols = native.bam_scan(buf, int(start_plain))
-        if cols is None:
+        threads = max(self._bgzf._threads, 4)
+        parts, n_rec = [], 0
+        skip = v & 0xFFFF
+        base = int(plain0[b]) + skip  # plain offset of buf[0]
+        rest = _np.zeros(0, dtype=_np.uint8)
+        while b < len(offs):
+            e = int(_np.searchsorted(plain0, plain0[b] + chunk_bytes,
+                                     side="right")) - 1
+            e = min(max(e, b + 1), len(offs))
+            # the carried record's head, then the chunk
+            buf = native.bgzf_inflate_range(comp, offs[b:e], isize[b:e],
+                                            threads, head=rest)
+            if buf is None:
+                return None, None
+            buf = buf[skip:]
+            b, skip = e, 0
+            cols = native.bam_scan(buf, 0, max_rec=len(buf) // 36 + 16)
+            if cols is None:
+                return None, None
+            stop = 0
+            if len(cols["pos"]):
+                last = int(cols["rec_off"][-1])
+                stop = last + 4 + int(buf[last:last + 4].view(_np.int32)[0])
+                cols["rec_off"] += base
+                parts.append(cols)
+                n_rec += len(cols["pos"])
+            rest = buf[stop:].copy()
+            del buf
+            base += stop
+            if len(rest) >= 4 and int(rest[:4].view(_np.int32)[0]) < 32:
+                break  # a record shorter than its fixed fields ends it
+        # the whole-file scan's record cap (native.bam_scan's default)
+        cap = max(16, int(plain0[-1]) // 40)
+        if n_rec > cap or (n_rec == cap and len(rest) >= 4):
             return None, None
-        return cols, buf
+        if not parts:
+            return native.bam_scan(b"", 0), None  # no record: empty columns
+        return {k: _np.concatenate([p[k] for p in parts])
+                for k in parts[0]}, None
 
     def _inflate_range(self, b0: int, slice_end: int, reuse: bool = False):
         """Inflate compressed range [b0, slice_end) with a rolling cache.

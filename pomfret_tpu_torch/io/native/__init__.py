@@ -251,6 +251,51 @@ def bgzf_inflate_all(comp: bytes, n_threads: int = 4) -> Optional[bytes]:
     return out.tobytes()
 
 
+def bgzf_block_table(comp) -> Optional[Tuple[np.ndarray, np.ndarray]]:
+    """(byte offset in `comp`, uncompressed size) of every BGZF block."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    comp_a = np.frombuffer(comp, dtype=np.uint8)
+    max_blocks = len(comp) // 28 + 2
+    offs = np.zeros(max_blocks, dtype=np.int64)
+    isize = np.zeros(max_blocks, dtype=np.int64)
+    n = lib.bgzf_scan_blocks(_p(comp_a, ctypes.c_uint8), len(comp),
+                             _p(offs, ctypes.c_int64), _p(isize, ctypes.c_int64),
+                             max_blocks)
+    if n < 0:
+        return None
+    return offs[:n].copy(), isize[:n].copy()
+
+
+def bgzf_inflate_range(comp, offs: np.ndarray, isize: np.ndarray,
+                       n_threads: int = 4,
+                       head: Optional[np.ndarray] = None
+                       ) -> Optional[np.ndarray]:
+    """Consecutive blocks of `comp` (rows of bgzf_block_table) inflated
+    into one new array, after a copy of `head` where given, by the native
+    thread pool."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    comp_a = np.frombuffer(comp, dtype=np.uint8)
+    offs = np.ascontiguousarray(offs, dtype=np.int64)
+    isize = np.ascontiguousarray(isize, dtype=np.int64)
+    h = 0 if head is None else len(head)
+    out_offs = np.full(len(offs), h, dtype=np.int64)
+    if len(offs) > 1:
+        np.cumsum(isize[:-1], out=out_offs[1:])
+        out_offs[1:] += h
+    out = np.empty(h + int(isize.sum()), dtype=np.uint8)
+    if h:
+        out[:h] = head
+    r = lib.bgzf_inflate_blocks(_p(comp_a, ctypes.c_uint8), len(comp),
+                                _p(offs, ctypes.c_int64), _p(out_offs, ctypes.c_int64),
+                                _p(isize, ctypes.c_int64), len(offs),
+                                _p(out, ctypes.c_uint8), n_threads)
+    return None if r != 0 else out
+
+
 def bgzf_deflate_all(payload: bytes, level: int = 6, n_threads: int = 4,
                      chunk: int = 0xFF00) -> Optional[bytes]:
     """Compress a payload into BGZF blocks (no EOF marker appended)."""
@@ -311,13 +356,16 @@ def bgzf_deflate_all_chunks(payload: bytes, lens, level: int = 6,
     return b"".join(parts), [int(x) for x in out_lens]
 
 
-def bam_scan(buf: bytes, start: int) -> Optional[dict]:
-    """Columnar scan of all records from `start`; returns dict of arrays."""
+def bam_scan(buf: bytes, start: int,
+             max_rec: Optional[int] = None) -> Optional[dict]:
+    """Columnar scan of all records from `start`; returns dict of arrays,
+    or None past `max_rec` records (by default one per 40 bytes)."""
     lib = get_lib()
     if lib is None:
         return None
     b = np.frombuffer(buf, dtype=np.uint8)
-    max_rec = max(16, len(buf) // 40)
+    if max_rec is None:
+        max_rec = max(16, len(buf) // 40)
     rec_off = np.zeros(max_rec, dtype=np.int64)
     refID = np.zeros(max_rec, dtype=np.int32)
     pos = np.zeros(max_rec, dtype=np.int32)

@@ -7,8 +7,12 @@ _bucket_dim, _bucket_lanes, _reseeded and pack_group produce arrays equal
 to engine_jax's (tests/test_torch_pack.py). run_jobs_batched,
 run_gaps_batched and _drain_group drive the port's dispatch
 (parallel/batch.py) with the same plan, prefetch producer, pipe depth and
-first-wins merge order as engine_jax's; run_gap is run_gap_jax, one gap
-at a time (tests/test_torch_run_gap.py).
+first-wins merge order as engine_jax's, and hold less while they do
+(ROADMAP.md, queue 3): the previous chromosome's source goes before the
+next one's decode, the producer holds no loaded group beyond its
+prefetch depth, and a dispatched group keeps only what its decision
+reads. run_gap is run_gap_jax, one gap at a time
+(tests/test_torch_run_gap.py).
 
 Unlike engine_jax, a failed device group is not recomputed on the host
 oracle: it raises (see ROADMAP.md, queue 3).
@@ -579,9 +583,15 @@ def run_jobs_batched(st, bam, jobs, group: int = 0, n_permutations: int = 1,
     lanes pad to a multiple of the device count.
     Returns a list of (decisions, tag_maps) dicts aligned with jobs.
 
-    Up to POMFRET_PIPE_DEPTH groups are in flight: the device runs group k
-    while the host loads and packs group k+1, across chromosome
-    boundaries."""
+    Up to POMFRET_PIPE_DEPTH groups are dispatched and not yet decided: the
+    device runs group k while the host loads and packs group k+1, across
+    chromosome boundaries. A thread loads up to POMFRET_PREFETCH groups
+    ahead of the one being packed, so at most prefetch + pipe depth + 1
+    groups are alive at once, each from the start of its load to the end
+    of its decision (DISPATCH_STATS groups_in_flight, groups_in_flight_max);
+    a dispatched group keeps only what the decision reads (its windows'
+    tags, names and boundary reads, and its lanes' row orders)."""
+    import threading as _threading
     import time as _time
     from ..parallel import batch as _batch
     from ..parallel.batch import DISPATCH_STATS, run_gap_batch_group_async
@@ -605,11 +615,23 @@ def run_jobs_batched(st, bam, jobs, group: int = 0, n_permutations: int = 1,
 
     def _chrom_source(ji):
         if src_state["ji"] != ji:
-            src_state["ji"] = ji
+            # let the previous chromosome's source go before this one's
+            # decode starts
+            src_state["ji"], src_state["src"] = ji, None
             src_state["src"] = chrom_source(bam, jobs[ji])
         return src_state["src"]
 
+    inflight_lock = _threading.Lock()
+
+    def _inflight(d):
+        with inflight_lock:
+            n = DISPATCH_STATS["groups_in_flight"] + d
+            DISPATCH_STATS["groups_in_flight"] = n
+            DISPATCH_STATS["groups_in_flight_max"] = max(
+                n, DISPATCH_STATS["groups_in_flight_max"])
+
     def _load_chunk(ji, chunk):
+        _inflight(1)
         job = jobs[ji]
         ref_name, rg, cfg = job["ref_name"], job["rg"], job["cfg"]
 
@@ -631,11 +653,11 @@ def run_jobs_batched(st, bam, jobs, group: int = 0, n_permutations: int = 1,
             add_stage("wl_sites", t2 - t1)
             return i, rs, ms_fwd, ms_bwd
 
-        with stage("window_load"):
-            with stage("wl_source"):
+        with stage("window_load", ref_name):
+            with stage("wl_source", ref_name):
                 src = _chrom_source(ji)
             if src is not None:
-                with stage("wl_window"):
+                with stage("wl_window", ref_name):
                     return [_load_one(i, src) for i in chunk]
             if n_load_threads > 1 and len(chunk) > 1:
                 import concurrent.futures as _fut
@@ -651,17 +673,19 @@ def run_jobs_batched(st, bam, jobs, group: int = 0, n_permutations: int = 1,
     depth = int(os.environ.get("POMFRET_PREFETCH", default_depth))
     if depth > 0 and len(plan) > 1:
         import queue as _queue
-        import threading as _threading
-        q: "_queue.Queue" = _queue.Queue(maxsize=depth)
+        q: "_queue.Queue" = _queue.Queue()
+        # a slot a group, from the start of its load until the consumer
+        # takes it: at most `depth` groups loaded or loading ahead
+        slots = _threading.Semaphore(depth)
 
         def _producer():
             try:
                 for ji, chunk in plan:
-                    item = (ji, chunk, _load_chunk(ji, chunk), None)
                     t0 = _time.perf_counter()
-                    q.put(item)
+                    slots.acquire()
                     DISPATCH_STATS["prefetch_put_wait_s"] += \
                         _time.perf_counter() - t0
+                    q.put((ji, chunk, _load_chunk(ji, chunk), None))
             except BaseException as e:  # surface in the consumer
                 q.put((None, None, None, e))
 
@@ -673,6 +697,7 @@ def run_jobs_batched(st, bam, jobs, group: int = 0, n_permutations: int = 1,
             for _ in range(len(plan)):
                 t0 = _time.perf_counter()
                 ji, chunk, loads, err = q.get()
+                slots.release()
                 DISPATCH_STATS["prefetch_get_wait_s"] += \
                     _time.perf_counter() - t0
                 DISPATCH_STATS["prefetch_groups"] += 1
@@ -680,6 +705,7 @@ def run_jobs_batched(st, bam, jobs, group: int = 0, n_permutations: int = 1,
                 if err is not None:
                     raise err
                 yield ji, loads
+                loads = None  # the consumer holds what it still needs
             t.join()
     else:
         def _iter_groups():
@@ -690,13 +716,15 @@ def run_jobs_batched(st, bam, jobs, group: int = 0, n_permutations: int = 1,
     pending = []
 
     def _drain_oldest():
-        ji, loaded, datas, errs, fut, iv_idx = pending.pop(0)
-        _drain_group((loaded, datas, errs, fut), *results[ji],
-                     n_permutations)
+        ji, kept, perms, errs, fut, iv_idx = pending.pop(0)
+        _drain_group((kept, perms, errs, fut), *results[ji],
+                     n_permutations, jobs[ji]["ref_name"])
         DISPATCH_STATS["group_intervals"][iv_idx][1] = _time.perf_counter()
+        _inflight(-1)
 
     for ji, loads in _iter_groups():
         job = jobs[ji]
+        ref_name = job["ref_name"]
         decisions, tag_maps = results[ji]
         loaded = []
         for i, rs, ms_fwd, ms_bwd in loads:
@@ -706,31 +734,39 @@ def run_jobs_batched(st, bam, jobs, group: int = 0, n_permutations: int = 1,
                 tag_maps[i] = {}
                 continue
             loaded.append((i, rs, ms_fwd, ms_bwd))
+        del loads
         if not loaded:
+            _inflight(-1)
             continue
         rngs = None
         if n_permutations > 1:
             from ..core.engine_host import Drand48
             rngs = [Drand48.from_srand48(job["perm_key_base"] + i)
                     for i, *_ in loaded]
-        with stage("pack"):
+        with stage("pack", ref_name):
             datas, parts, errs = pack_group(loaded, job["cfg"],
                                             job["n_cand"],
                                             lane_multiple=n_dev,
                                             n_permutations=n_permutations,
                                             rngs=rngs)
-        # in-flight groups only need hp/qname/boundary state for the decide
-        # step: drop each window's concat memo now that packing consumed it
-        for _li, _rs, _mf, _mb in loaded:
-            _rs._calls_concat = None
-            _rs._site_sel_cache = None
-        with stage("dispatch"):
+        with stage("dispatch", ref_name):
             fut = run_gap_batch_group_async(parts, n_lanes=len(datas),
                                             engine=engine, device=device,
                                             mesh=mesh)
+        # a dispatched group keeps what the decision reads: each window's
+        # reads without their calls (views of the chromosome source's
+        # slabs), its boundary reads, and each lane's row order
+        kept = [(i, rs) for i, rs, _, _ in loaded]
+        for _, rs in kept:
+            rs._calls_concat = None
+            rs._site_sel_cache = None
+            for r in rs.reads:
+                r.calls = r.quals = r.mmr = None
+        perms = [d.perm for d in datas]
+        del loaded, datas, parts
         DISPATCH_STATS.setdefault("group_intervals", []).append(
             [_time.perf_counter(), None])  # drain time filled at drain
-        pending.append((ji, loaded, datas, errs, fut,
+        pending.append((ji, kept, perms, errs, fut,
                         len(DISPATCH_STATS["group_intervals"]) - 1))
         if len(pending) > pipe_depth:
             _drain_oldest()
@@ -739,26 +775,36 @@ def run_jobs_batched(st, bam, jobs, group: int = 0, n_permutations: int = 1,
     return results
 
 
-def _drain_group(entry, decisions, tag_maps, n_permutations: int = 1) -> None:
+def _drain_group(entry, decisions, tag_maps, n_permutations: int = 1,
+                 tag: Optional[str] = None) -> None:
     """Download one finished group and run the host-side decision step:
     per (gap, direction) evaluate each permutation lane's separation, vote,
-    then apply the fwd/bwd agreement gate (blockjoin.c:4288-4320)."""
+    then apply the fwd/bwd agreement gate (blockjoin.c:4288-4320).
+    entry: (the group's (gap index, ReadSet) pairs, each lane's row order
+    (GapDeviceData.perm), the failed permutes, the pending result); tag:
+    the stages' tag (the chromosome)."""
     import time as _time
-    from ..core.engine_host import vote_permutations
-    from ..utils.stats import add_stage, stage
+    from ..utils.stats import stage
     from ..parallel.batch import DISPATCH_STATS
 
-    loaded, datas, errs, fut = entry
+    loaded, perms, errs, fut = entry
     w0 = _time.perf_counter()
-    with stage("device_wait"):
+    with stage("device_wait", tag):
         out = np.asarray(fut)  # blocks until the device batch finishes
     DISPATCH_STATS["device_wait_s"] += _time.perf_counter() - w0
     DISPATCH_STATS["gaps_decided"] += len(loaded)
-    DISPATCH_STATS["real_lanes"] += len(datas)
+    DISPATCH_STATS["real_lanes"] += len(perms)
+    with stage("decide", tag):
+        _decide(loaded, perms, errs, out, decisions, tag_maps, n_permutations)
+
+
+def _decide(loaded, perms, errs, out, decisions, tag_maps,
+            n_permutations: int) -> None:
+    """_drain_group's decision step on the group's (G, R) tags `out`."""
+    from ..core.engine_host import vote_permutations
     n_loaded = len(loaded)
     N = n_permutations
-    t_decide = _time.perf_counter()
-    for j, (i, rs, _, _) in enumerate(loaded):
+    for j, (i, rs) in enumerate(loaded):
         initial = rs.store_haplotags()
         results: Dict[int, tuple] = {}
         for k, direction in enumerate((1, 0)):
@@ -768,10 +814,9 @@ def _drain_group(entry, decisions, tag_maps, n_permutations: int = 1) -> None:
             evals, bufs = [], []
             for p in range(N):
                 lane = (k * n_loaded + j) * N + p
-                dd = datas[lane]
                 hp = out[lane]
                 hp_orig = np.full(rs.n, 2, dtype=np.int32)
-                hp_orig[dd.perm[: rs.n]] = hp[: rs.n]
+                hp_orig[perms[lane][: rs.n]] = hp[: rs.n]
                 rs.restore_haplotags(hp_orig)
                 evals.append(evaluate_separation(
                     rs, initial, 1 if direction == 0 else 0))
@@ -789,4 +834,3 @@ def _drain_group(entry, decisions, tag_maps, n_permutations: int = 1) -> None:
             d = join1
         decisions[i] = d
         tag_maps[i] = {r.qname: r.hp for r in rs.reads} if d >= 0 else {}
-    add_stage("decide", _time.perf_counter() - t_decide)

@@ -145,23 +145,95 @@ _LOOP_KEYS = ("has_mmr", "hp_init", "seed_ok", "n_reads", "n_sites",
               "q_break", "min0", "max0", "cov", "n_cand", "max_iters")
 
 
+class _Staging:
+    """The pinned host buffer through which every array of a batch goes to
+    one card: anonymous pages (mmap) page-locked with cudaHostRegister,
+    outside PyTorch's caching host allocator, which would keep a
+    power-of-two block of every size a run uploads for the life of the
+    process. It grows to the largest batch uploaded and never shrinks.
+    Before it is written again it waits for the event recorded after the
+    last batch's copies out of it, so the copies stay asynchronous: the
+    card takes batch k while the host packs batch k+1."""
+
+    ALIGN = 256
+
+    def __init__(self):
+        import threading
+        self.mem = self.buf = self.event = None
+        self.lock = threading.Lock()
+
+    def _grow(self, nbytes: int) -> None:
+        import mmap
+        rt = torch.cuda.cudart()
+        if self.buf is not None:
+            err = int(rt.cudaHostUnregister(self.buf.ctypes.data))
+            if err:
+                raise RuntimeError(f"cudaHostUnregister failed ({err})")
+            self.buf = None
+            try:
+                self.mem.close()
+            except BufferError:  # a view still lives: freed after it
+                pass
+        self.mem = mmap.mmap(-1, _round_up(nbytes, 1 << 20))
+        buf = np.frombuffer(self.mem, dtype=np.uint8)
+        # 1: cudaHostRegisterPortable, pinned for every card's context
+        err = int(rt.cudaHostRegister(buf.ctypes.data, buf.nbytes, 1))
+        if err:
+            raise RuntimeError(f"cudaHostRegister of {buf.nbytes} bytes "
+                               f"failed ({err})")
+        self.buf = buf
+
+    def upload(self, arrays, device) -> list:
+        """Each numpy array as a tensor on `device`, copied on the current
+        stream through this buffer."""
+        offs, n = [], 0
+        for a in arrays:
+            offs.append(n)
+            n = _round_up(n + a.nbytes, self.ALIGN)
+        with self.lock:
+            if self.event is not None:
+                self.event.synchronize()
+            if self.buf is None or self.buf.nbytes < n:
+                self._grow(n)
+            out = []
+            for a, o in zip(arrays, offs):
+                view = self.buf[o:o + a.nbytes].view(a.dtype).reshape(a.shape)
+                np.copyto(view, a)
+                out.append(torch.from_numpy(view).to(device,
+                                                     non_blocking=True))
+            self.event = torch.cuda.Event()
+            self.event.record()
+        return out
+
+
+_STAGING: Dict[torch.device, _Staging] = {}
+
+
+def staging_bytes() -> int:
+    """The bytes of host memory pinned for uploads (every card's staging
+    buffer)."""
+    return sum(s.buf.nbytes for s in _STAGING.values() if s.buf is not None)
+
+
 def batch_tensors(batch: GapBatch, max_iters: int,
                   device) -> Dict[str, torch.Tensor]:
     """The packed batch as tensors on `device`, keyed by argument name
     ("ids", or "blk" and "b0", then _LOOP_KEYS). dtypes are kept: ids stay
-    int8 when D <= 127. A CUDA upload goes through pinned host memory with
-    non_blocking copies on the current stream."""
+    int8 when D <= 127. A CUDA upload goes through the card's pinned
+    staging buffer (_Staging) with non_blocking copies on the current
+    stream."""
     device = torch.device(device)
     grid = ("ids",) if batch.blk is None else ("blk", "b0")
-    out = {}
-    for name, a in zip(grid + _LOOP_KEYS, batch_args(batch, max_iters)):
-        t = torch.from_numpy(np.ascontiguousarray(a))
-        if device.type == "cuda":
-            t = t.pin_memory().to(device, non_blocking=True)
-        else:
-            t = t.to(device)
-        out[name] = t
-    return out
+    arrays = [np.ascontiguousarray(a)
+              for a in batch_args(batch, max_iters)]
+    if device.type == "cuda":
+        if device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+        tensors = _STAGING.setdefault(device, _Staging()).upload(arrays,
+                                                                 device)
+    else:
+        tensors = [torch.from_numpy(a).to(device) for a in arrays]
+    return dict(zip(grid + _LOOP_KEYS, tensors))
 
 
 def densify_runs(blk: torch.Tensor, b0: torch.Tensor, S: int,
@@ -246,14 +318,16 @@ def _run_batch(t: Dict[str, torch.Tensor], batch: GapBatch, engine: str):
 
 
 # dispatch observability, the keys of pomfret_tpu.parallel.batch's
-# DISPATCH_STATS plus kernel_launches (launches by kernel name) and shapes
+# DISPATCH_STATS plus kernel_launches (launches by kernel name), shapes
 # (batches dispatched by (G, R, S, D, nc_cap, layout), layout "runs" or
-# "dense")
+# "dense") and the groups alive in engine_torch.run_jobs_batched (now and
+# at most)
 DISPATCH_STATS = {"n_dispatches": 0, "n_devices_last": 1, "lanes_last": 0,
                   "window_reads": 0,
                   "gaps_decided": 0, "device_wait_s": 0.0, "real_lanes": 0,
                   "prefetch_put_wait_s": 0.0, "prefetch_get_wait_s": 0.0,
                   "prefetch_groups": 0, "prefetch_queue_depth_sum": 0,
+                  "groups_in_flight": 0, "groups_in_flight_max": 0,
                   "kernel_launches": {name: 0 for name in KERNELS},
                   "shapes": {}}
 

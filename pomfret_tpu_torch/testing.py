@@ -597,24 +597,39 @@ def _make_chrom_part(part: str, ci: int, layout, read_stagger: int,
                 peak_mib=peak_rss_mib())
 
 
-class _RssSampler:
-    """This process's resident set (VmRSS) read every `every` seconds on a
-    thread of its own while the `with` block runs; start_mib: the first
-    read, peak_mib: the largest. It sees a transient that lasts longer
-    than `every`, and works where /proc/self/status has no VmHWM."""
+class RssTimeline:
+    """A resident set (VmRSS of `status`: this process's, or another's
+    /proc/<pid>/status) read every `every` seconds on a thread of its own
+    while the `with` block runs; start_mib: the first read, peak_mib: the
+    largest. It sees a transient that lasts longer than `every`, and works
+    where /proc/self/status has no VmHWM. samples: (time.perf_counter(),
+    MiB, *gauges) of every read, each gauge (a callable of `gauges`, by
+    name) read with it; the clock is utils.stats' stage events' clock
+    (memory_by_stage). Reads stop where the process has gone."""
 
-    def __init__(self, every: float = 0.1):
+    def __init__(self, every: float = 0.1, status: str = "/proc/self/status",
+                 gauges=None):
         import threading
-        self.every, self.peak_mib = every, 0.0
+        self.every, self.peak_mib, self.status = every, 0.0, status
+        self.gauges = dict(gauges or {})
+        self.samples = []
         self._stop = threading.Event()
         self._thread = threading.Thread(target=self._run, daemon=True)
 
-    def _sample(self) -> None:
-        self.peak_mib = max(self.peak_mib, proc_status_mib("VmRSS"))
+    def _sample(self) -> bool:
+        try:
+            mib = proc_status_mib("VmRSS", self.status)
+        except (OSError, RuntimeError):
+            return False
+        self.peak_mib = max(self.peak_mib, mib)
+        self.samples.append((time.perf_counter(), mib,
+                             *(g() for g in self.gauges.values())))
+        return True
 
     def _run(self) -> None:
         while not self._stop.wait(self.every):
-            self._sample()
+            if not self._sample():
+                return
 
     def __enter__(self):
         self._sample()
@@ -626,6 +641,63 @@ class _RssSampler:
         self._stop.set()
         self._thread.join()
         self._sample()
+
+    def record(self, events=(), t0: Optional[float] = None) -> dict:
+        """The timeline as JSON: seconds from t0 (the first read where
+        None), MiB and gauges by read, `events` (utils.stats.STAGE_EVENTS)
+        the same way, and memory_by_stage's summary of them."""
+        t0 = self.samples[0][0] if t0 is None else t0
+        return dict(
+            fields=["s", "rss_mib", *self.gauges],
+            samples=[[round(t - t0, 3), round(m, 1), *g]
+                     for t, m, *g in self.samples],
+            events=[[n, tag, round(a - t0, 3), round(b - t0, 3)]
+                    for n, tag, a, b in events],
+            **memory_by_stage(self.samples, events, t0))
+
+
+def memory_by_stage(samples, events, t0: float) -> dict:
+    """A run's resident set by stage and by chromosome, from its timeline
+    (samples: (time, MiB, ...) in time order) and its stage events ((name,
+    tag, entry, exit) on the same clock; tag the chromosome or None):
+    peak_mib and peak_s (seconds from t0); open_at_peak, the stages (name
+    or name:tag) open at the peak's read; by_stage[name], the largest read
+    while a stage of that name was open, [MiB, s]; by_chrom[tag] the same
+    over the stages tagged with it, and by_chrom_stage[tag][name] by stage
+    within it; outside_mib, the largest read while no stage was open. A
+    stage that no read fell in is absent."""
+    ts = [t for t, *_ in samples]
+    inside = [False] * len(samples)
+    by_stage, by_chrom, by_chrom_stage = {}, {}, {}
+
+    def top(d, key, k):
+        if key not in d or samples[k][1] > d[key][0]:
+            d[key] = [round(samples[k][1], 1), round(samples[k][0] - t0, 3)]
+
+    for name, tag, a, b in events:
+        lo, hi = bisect.bisect_left(ts, a), bisect.bisect_right(ts, b)
+        if lo >= hi:
+            continue
+        k = max(range(lo, hi), key=lambda j: samples[j][1])
+        inside[lo:hi] = [True] * (hi - lo)
+        top(by_stage, name, k)
+        if tag is not None:
+            top(by_chrom, tag, k)
+            top(by_chrom_stage.setdefault(tag, {}), name, k)
+    if not samples:
+        return dict(peak_mib=None)
+    kp = max(range(len(samples)), key=lambda j: samples[j][1])
+    tp = samples[kp][0]
+    out = [m for (_, m, *_), i in zip(samples, inside) if not i]
+    return dict(
+        peak_mib=round(samples[kp][1], 1), peak_s=round(tp - t0, 3),
+        open_at_peak=sorted({n if tag is None else f"{n}:{tag}"
+                             for n, tag, a, b in events if a <= tp <= b}),
+        by_stage=by_stage,
+        by_chrom={t: v[0] for t, v in by_chrom.items()},
+        by_chrom_stage={t: {n: v[0] for n, v in d.items()}
+                        for t, d in by_chrom_stage.items()},
+        outside_mib=round(max(out), 1) if out else None)
 
 
 def _make_scenarios(kws, procs: int):
@@ -639,7 +711,7 @@ def _make_scenarios(kws, procs: int):
     set dict(scenario=(bam, vcf, truths), seconds, write_s, chroms,
     parent_start_mib, parent_peak_mib), chroms[ci] = dict(reads, seconds,
     peak_mib) of its worker; this process's VmRSS as it started and its
-    largest while it made them all (_RssSampler), the same in every
+    largest while it made them all (RssTimeline), the same in every
     set."""
     import shutil
     from multiprocessing.connection import wait
@@ -665,7 +737,7 @@ def _make_scenarios(kws, procs: int):
                 *s.chrom_args)
 
     try:
-        with _RssSampler() as rss:
+        with RssTimeline() as rss:
             start()
             for s in sets:  # while the first workers run
                 s.build_regions()

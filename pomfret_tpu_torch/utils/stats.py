@@ -15,9 +15,13 @@ from __future__ import annotations
 
 import time
 from contextlib import contextmanager
-from typing import Dict
+from typing import Dict, List, Optional, Tuple
 
 STAGE_SECONDS: Dict[str, float] = {}
+# (name, tag, entry, exit) of every stage left while record_stage_events()
+# is on, on time.perf_counter()'s clock (testing.memory_by_stage reads the
+# resident set by stage with it); None while off
+STAGE_EVENTS: Optional[List[Tuple[str, Optional[str], float, float]]] = None
 
 
 def add_stage(name: str, dt: float) -> None:
@@ -25,12 +29,24 @@ def add_stage(name: str, dt: float) -> None:
 
 
 @contextmanager
-def stage(name: str):
+def stage(name: str, tag: Optional[str] = None):
+    """Add the block's seconds to `name`; while stage events are recorded,
+    also log its entry and exit with `tag` (e.g. the chromosome)."""
     t0 = time.perf_counter()
     try:
         yield
     finally:
-        add_stage(name, time.perf_counter() - t0)
+        t1 = time.perf_counter()
+        add_stage(name, t1 - t0)
+        events = STAGE_EVENTS
+        if events is not None:
+            events.append((name, tag, t0, t1))
+
+
+def record_stage_events(on: bool = True) -> None:
+    """Start (a fresh log) or stop logging stage events (STAGE_EVENTS)."""
+    global STAGE_EVENTS
+    STAGE_EVENTS = [] if on else None
 
 
 def reset_stages() -> None:
