@@ -1,0 +1,15 @@
+"""The chromosome decode's rate: the plain bytes the port's chromosome
+sources inflated in the traced window (its counter source_plain_bytes,
+utils.stats) over the seconds of its `wl_source` stage (thread-seconds),
+in MiB/s. Nothing where the window has no reads, or the port keeps no
+such counter or stage."""
+import sys
+
+
+def read(rec):
+    stats = sys.modules.get("pomfret_tpu_torch.utils.stats")
+    n = getattr(stats, "COUNTERS", {}).get("source_plain_bytes")
+    s = rec["stage_s"].get("wl_source")
+    if n is None or not s or not rec["window_reads"]:
+        return None
+    return n / 2 ** 20 / s

@@ -16,6 +16,7 @@ import numpy as np
 from ..io.bam import BamReader, bam_endpos
 from ..io.basemod import read_meth_calls
 from ..utils.log import log_warn
+from ..utils.stats import count
 from .variants import HAPTAG_UNPHASED
 
 READBACK = 50000      # blockjoin.c:19
@@ -311,8 +312,7 @@ class ChromReadSource:
         if regions is None:
             regions = [(0, ref_len)]
 
-        from ..utils.stats import add_stage, stage
-        import time as _time
+        from ..utils.stats import current_group, group, stage
 
         ics = getattr(bam, "iter_columnar_segments", None)
         if ics is not None:
@@ -323,12 +323,16 @@ class ChromReadSource:
             # the cross-segment dedup never collides.
             parts = []
             base = 0
-            _tf = _time.perf_counter()
-            for item in ics(chrom, None if regions == [(0, ref_len)]
-                            else regions, config.min_mapq,
-                            config.readlen_threshold, MIN_ALN_DE,
-                            config.lo, config.hi):
-                add_stage("wl_src_fetch", _time.perf_counter() - _tf)
+            _END = object()
+            items = iter(ics(chrom, None if regions == [(0, ref_len)]
+                             else regions, config.min_mapq,
+                             config.readlen_threshold, MIN_ALN_DE,
+                             config.lo, config.hi))
+            while True:
+                with stage("wl_src_fetch"):
+                    item = next(items, _END)
+                if item is _END:
+                    break
                 if item is None:
                     return  # reader bailed (spool mode/no native)
                 cols, buf = item
@@ -338,7 +342,6 @@ class ChromReadSource:
                 base += len(buf) + 1
                 if part is not None:
                     parts.append(part)
-                _tf = _time.perf_counter()
             with stage("wl_src_finish"):
                 self._finish_init(parts)
             return
@@ -387,11 +390,14 @@ class ChromReadSource:
         fkw = {"reuse_buffer": True} if getattr(bam, "fetch_reuse", False) \
             else {}
 
+        gid = current_group()  # the pipe's worker serves it too
+
         def _fetch(seg):
             g0, g1, _first = seg
-            return fwc(chrom, g0, g1, config.min_mapq,
-                       config.readlen_threshold, MIN_ALN_DE,
-                       config.lo, config.hi, **fkw)
+            with group(gid), stage("wl_src_fetch"):
+                return fwc(chrom, g0, g1, config.min_mapq,
+                           config.readlen_threshold, MIN_ALN_DE,
+                           config.lo, config.hi, **fkw)
 
         # one-deep segment pipeline: the native decode of segment k+1
         # (inflate + bam_window_load, GIL-releasing) runs on a single
@@ -414,7 +420,8 @@ class ChromReadSource:
             try:
                 nxt = ex.submit(_fetch, segs[0])
                 for k, seg in enumerate(segs):
-                    cols, buf = nxt.result()
+                    with stage("wl_src_wait"):  # the worker's fetch
+                        cols, buf = nxt.result()
                     if k + 1 < len(segs):
                         nxt = ex.submit(_fetch, segs[k + 1])
                     if cols is None:
@@ -428,8 +435,7 @@ class ChromReadSource:
                 ex.shutdown(wait=True)
         else:
             for g0, g1, first in segs:
-                with stage("wl_src_fetch"):
-                    cols, buf = _fetch((g0, g1, first))
+                cols, buf = _fetch((g0, g1, first))
                 if cols is None:
                     return
                 with stage("wl_src_assemble"):
@@ -507,9 +513,14 @@ class ChromReadSource:
         segment of the same region); rare fallback records re-decode
         through the Python oracle, spliced in record order. off_base
         shifts rec_off into a per-segment range (reader-segmented sources
-        reuse stream-local offsets)."""
+        reuse stream-local offsets). Adds the records the segment's load
+        parsed, kept or not, and its plain bytes to the counters
+        source_records and source_plain_bytes (utils.stats)."""
         from ..io.bam import decode_record
         n = cols["n"]
+        if "n_parsed" in cols:  # the JAX package's reader does not count
+            count("source_records", cols["n_parsed"])
+        count("source_plain_bytes", len(buf))
         if not n:
             return None
         if cols["has_implicit"]:

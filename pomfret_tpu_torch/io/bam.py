@@ -10,6 +10,7 @@ import struct
 import threading as _threading
 from typing import Iterator, List, Optional, Tuple
 
+from ..utils.stats import count
 from .bgzf import BgzfReader
 
 # generation toggle for the process-global reuse arenas (_inflate_range
@@ -372,7 +373,9 @@ class BamReader:
         a chunk's end carried into the next, so the scan holds one chunk
         and the columns, not the whole plain file (which the JAX package's
         scan inflates at once); its columns, and where it stops or gives
-        up, are those of one scan over the whole file."""
+        up, are those of one scan over the whole file. The blocks' plain
+        bytes it inflates add to the counter scan_plain_bytes
+        (utils.stats)."""
         try:
             from . import native
         except ImportError:
@@ -404,6 +407,7 @@ class BamReader:
                                             threads, head=rest)
             if buf is None:
                 return None, None
+            count("scan_plain_bytes", int(plain0[e] - plain0[b]))
             buf = buf[skip:]
             b, skip = e, 0
             cols = native.bam_scan(buf, 0, max_rec=len(buf) // 36 + 16)
@@ -563,7 +567,8 @@ class BamReader:
         cache — the chrom-source segment-scan contract."""
         tid = self.ref_id(chrom)
         if tid < 0:
-            return {"n": 0, "has_implicit": False, "qnames": []}, b""
+            return {"n": 0, "n_parsed": 0, "has_implicit": False,
+                    "qnames": []}, b""
         idx = self._load_index()
         if idx is None:
             return None, None

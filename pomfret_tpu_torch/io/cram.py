@@ -1469,7 +1469,8 @@ class CramReader:
             return None, None
         tid = self.ref_id(chrom)
         if tid < 0:
-            return {"n": 0, "has_implicit": False, "qnames": []}, b""
+            return {"n": 0, "n_parsed": 0, "has_implicit": False,
+                    "qnames": []}, b""
         seen = set()
         keys = []
         for (sid, s1, span, coff, soff, ssize) in self._slice_index():

@@ -139,7 +139,7 @@ def get_lib() -> Optional[ctypes.CDLL]:
             i64p, i32p, i32p, i8p, i32p, i32p, i8p,
             i64p, u8p, ctypes.c_int64,
             i64p, i32p, u32p, u8p, ctypes.c_int64,
-            i32p]
+            i32p, i64p]
         lib.varhaptag_reads.restype = ctypes.c_int64
         lib.varhaptag_reads.argtypes = [
             u8p, ctypes.c_int64, i64p, i64p, ctypes.c_int64,
@@ -477,7 +477,8 @@ def bam_window_load(buf, chunk_ranges, tid: int, beg: int, end: int,
                     lo: int, hi: int, n_threads: int = 0) -> Optional[dict]:
     """One-call window fetch+filter+meth-decode over a decompressed BAI
     chunk span (see bam_window_load in pomfret_native.cpp). Returns a dict
-    of columnar arrays, or None when the native lib is unavailable.
+    of columnar arrays of the n records kept, with n_parsed, the records it
+    parsed, kept or not; or None when the native lib is unavailable.
 
     The ctypes call releases the GIL, so concurrent window loads from a
     thread pool scale (the htslib-bgzf-worker role for region fetches)."""
@@ -524,6 +525,7 @@ def bam_window_load(buf, chunk_ranges, tid: int, beg: int, end: int,
         calls = _arena(f"wl_calls{g}", calls_cap, np.uint32)
         quals = _arena(f"wl_quals{g}", calls_cap, np.uint8)
         has_implicit = ctypes.c_int32(0)
+        n_parsed = ctypes.c_int64(0)
         n = lib.bam_window_load(
             _p(b, ctypes.c_uint8), len(buf),
             _p(c_starts, ctypes.c_int64), _p(c_stops, ctypes.c_int64), n_chunks,
@@ -536,7 +538,7 @@ def bam_window_load(buf, chunk_ranges, tid: int, beg: int, end: int,
             _p(qname_off, ctypes.c_int64), _p(qname_buf, ctypes.c_uint8), qn_cap,
             _p(call_off, ctypes.c_int64), _p(call_n, ctypes.c_int32),
             _p(calls, ctypes.c_uint32), _p(quals, ctypes.c_uint8), calls_cap,
-            ctypes.byref(has_implicit))
+            ctypes.byref(has_implicit), ctypes.byref(n_parsed))
         if n == -3:
             n_cap *= 2
             qn_cap *= 2
@@ -554,7 +556,7 @@ def bam_window_load(buf, chunk_ranges, tid: int, beg: int, end: int,
         # buffer; copying the whole capacity cost ~1s/200 windows)
         qb = qname_buf[: int(qname_off[n])].tobytes() if n else b""
         return {
-            "n": n,
+            "n": n, "n_parsed": int(n_parsed.value),
             # per-record columns are copied out of the arenas (tiny);
             # calls/quals stay arena-backed (see note above)
             "rec_off": rec_off[:n].copy(), "pos": pos[:n].copy(),

@@ -699,6 +699,7 @@ extern "C" int32_t meth_decode_read(
 //
 // Returns the number of reads kept, or a negative code the caller retries
 // on: -3 max_reads exceeded, -4 qname_cap exceeded, -5 calls_cap exceeded.
+// *out_n_parsed: the records whose header pass 1 read, kept or not.
 
 extern "C" int32_t meth_decode_read(
     const uint8_t* seq_packed, int32_t l_seq, int32_t strand,
@@ -753,9 +754,9 @@ extern "C" int64_t bam_window_load(
     int64_t* o_qname_off, uint8_t* qname_buf, int64_t qname_cap,
     int64_t* o_call_off, int32_t* o_call_n,
     uint32_t* calls_buf, uint8_t* quals_buf, int64_t calls_cap,
-    int32_t* out_has_implicit) {
+    int32_t* out_has_implicit, int64_t* out_n_parsed) {
     *out_has_implicit = 0;
-    int64_t n = 0, qn_used = 0, calls_used = 0;
+    int64_t n = 0, qn_used = 0, calls_used = 0, n_parsed = 0;
     const int32_t HP_ABSENT = INT32_MIN;
     std::vector<WinCand> cands;
     // POMFRET_WL_PROF=1: per-pass wall breakdown to stderr
@@ -778,6 +779,7 @@ extern "C" int64_t bam_window_load(
             const int64_t rec_off = off;
             const uint8_t* rec_end = buf + off + 4 + block_size;
             off += 4 + block_size;
+            n_parsed++;
             int32_t rid, ps, lseq;
             memcpy(&rid, p, 4);
             memcpy(&ps, p + 4, 4);
@@ -918,6 +920,7 @@ extern "C" int64_t bam_window_load(
             cands.push_back(c);
         }
     }
+    *out_n_parsed = n_parsed;
     if (wl_prof) wl_t1 = wl_now();
     // ---- pass 2: parallel meth decode into per-thread arenas ----
     // per-read output bound for the scratch buffer: every emission is

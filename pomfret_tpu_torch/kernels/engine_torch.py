@@ -592,10 +592,9 @@ def run_jobs_batched(st, bam, jobs, group: int = 0, n_permutations: int = 1,
     a dispatched group keeps only what the decision reads (its windows'
     tags, names and boundary reads, and its lanes' row orders)."""
     import threading as _threading
-    import time as _time
     from ..parallel import batch as _batch
     from ..parallel.batch import DISPATCH_STATS, run_gap_batch_group_async
-    from ..utils.stats import add_stage, stage
+    from ..utils.stats import group as _group, new_id, stage
     if mesh is None:
         mesh = _batch.production_mesh(device)
     n_dev = 1 if mesh is None else len(mesh)
@@ -610,6 +609,9 @@ def run_jobs_batched(st, bam, jobs, group: int = 0, n_permutations: int = 1,
         idxs = job["indices"]
         for c0 in range(0, len(idxs), group):
             plan.append((ji, idxs[c0 : c0 + group]))
+    # each group's id, which the spans of its load, pack, dispatch and
+    # decision carry (utils.stats)
+    gids = [new_id() for _ in plan]
 
     src_state = {"ji": None, "src": None}  # producer-local, one job at a time
 
@@ -630,30 +632,30 @@ def run_jobs_batched(st, bam, jobs, group: int = 0, n_permutations: int = 1,
             DISPATCH_STATS["groups_in_flight_max"] = max(
                 n, DISPATCH_STATS["groups_in_flight_max"])
 
-    def _load_chunk(ji, chunk):
+    def _load_chunk(k):
         _inflight(1)
+        ji, chunk = plan[k]
         job = jobs[ji]
         ref_name, rg, cfg = job["ref_name"], job["rg"], job["cfg"]
 
         def _load_one(i, src=None):
-            t0 = _time.perf_counter()
-            if src is not None:
-                rs = src.window(rg.starts[i], rg.ends[i], READBACK,
-                                st.qname2haptag_raw if st.stores_raw_tag
-                                else None)
-            else:
-                rs = load_reads_given_interval(
-                    bam, ref_name, rg.starts[i], rg.ends[i], READBACK, cfg,
-                    st.qname2haptag_raw if st.stores_raw_tag else None)
-            t1 = _time.perf_counter()
-            ms_fwd = get_methmer_sites_and_ranges(rs, cfg, 0)
-            ms_bwd = get_methmer_sites_and_ranges(rs, cfg, 1)
-            t2 = _time.perf_counter()
-            add_stage("wl_materialize", t1 - t0)
-            add_stage("wl_sites", t2 - t1)
+            with _group(gids[k]):  # also on the load pool's threads
+                with stage("wl_materialize", ref_name):
+                    if src is not None:
+                        rs = src.window(rg.starts[i], rg.ends[i], READBACK,
+                                        st.qname2haptag_raw
+                                        if st.stores_raw_tag else None)
+                    else:
+                        rs = load_reads_given_interval(
+                            bam, ref_name, rg.starts[i], rg.ends[i],
+                            READBACK, cfg, st.qname2haptag_raw
+                            if st.stores_raw_tag else None)
+                with stage("wl_sites", ref_name):
+                    ms_fwd = get_methmer_sites_and_ranges(rs, cfg, 0)
+                    ms_bwd = get_methmer_sites_and_ranges(rs, cfg, 1)
             return i, rs, ms_fwd, ms_bwd
 
-        with stage("window_load", ref_name):
+        with _group(gids[k]), stage("window_load", ref_name):
             with stage("wl_source", ref_name):
                 src = _chrom_source(ji)
             if src is not None:
@@ -680,49 +682,48 @@ def run_jobs_batched(st, bam, jobs, group: int = 0, n_permutations: int = 1,
 
         def _producer():
             try:
-                for ji, chunk in plan:
-                    t0 = _time.perf_counter()
-                    slots.acquire()
-                    DISPATCH_STATS["prefetch_put_wait_s"] += \
-                        _time.perf_counter() - t0
-                    q.put((ji, chunk, _load_chunk(ji, chunk), None))
+                for k in range(len(plan)):
+                    with _group(gids[k]), stage("slot_wait"):
+                        slots.acquire()
+                    q.put((_load_chunk(k), None))
             except BaseException as e:  # surface in the consumer
-                q.put((None, None, None, e))
+                q.put((None, e))
 
         t = _threading.Thread(target=_producer, name="pomfret-loader",
                               daemon=True)
         t.start()
 
+        # group_wait: the main thread waiting for its next loaded group
         def _iter_groups():
-            for _ in range(len(plan)):
-                t0 = _time.perf_counter()
-                ji, chunk, loads, err = q.get()
+            for k in range(len(plan)):
+                with _group(gids[k]), stage("group_wait"):
+                    loads, err = q.get()
                 slots.release()
-                DISPATCH_STATS["prefetch_get_wait_s"] += \
-                    _time.perf_counter() - t0
-                DISPATCH_STATS["prefetch_groups"] += 1
-                DISPATCH_STATS["prefetch_queue_depth_sum"] += q.qsize()
                 if err is not None:
                     raise err
-                yield ji, loads
+                yield k, loads
                 loads = None  # the consumer holds what it still needs
             t.join()
     else:
         def _iter_groups():
-            for ji, chunk in plan:
-                yield ji, _load_chunk(ji, chunk)
+            for k in range(len(plan)):
+                with _group(gids[k]), stage("group_wait"):
+                    loads = _load_chunk(k)
+                yield k, loads
 
     pipe_depth = max(1, int(os.environ.get("POMFRET_PIPE_DEPTH", "2")))
     pending = []
 
     def _drain_oldest():
-        ji, kept, perms, errs, fut, iv_idx = pending.pop(0)
-        _drain_group((kept, perms, errs, fut), *results[ji],
-                     n_permutations, jobs[ji]["ref_name"])
-        DISPATCH_STATS["group_intervals"][iv_idx][1] = _time.perf_counter()
+        k, kept, perms, errs, fut = pending.pop(0)
+        ji = plan[k][0]
+        with _group(gids[k]):
+            _drain_group((kept, perms, errs, fut), *results[ji],
+                         n_permutations, jobs[ji]["ref_name"])
         _inflight(-1)
 
-    for ji, loads in _iter_groups():
+    for k, loads in _iter_groups():
+        ji = plan[k][0]
         job = jobs[ji]
         ref_name = job["ref_name"]
         decisions, tag_maps = results[ji]
@@ -743,16 +744,15 @@ def run_jobs_batched(st, bam, jobs, group: int = 0, n_permutations: int = 1,
             from ..core.engine_host import Drand48
             rngs = [Drand48.from_srand48(job["perm_key_base"] + i)
                     for i, *_ in loaded]
-        with stage("pack", ref_name):
-            datas, parts, errs = pack_group(loaded, job["cfg"],
-                                            job["n_cand"],
-                                            lane_multiple=n_dev,
-                                            n_permutations=n_permutations,
-                                            rngs=rngs)
-        with stage("dispatch", ref_name):
-            fut = run_gap_batch_group_async(parts, n_lanes=len(datas),
-                                            engine=engine, device=device,
-                                            mesh=mesh)
+        with _group(gids[k]):
+            with stage("pack", ref_name):
+                datas, parts, errs = pack_group(
+                    loaded, job["cfg"], job["n_cand"], lane_multiple=n_dev,
+                    n_permutations=n_permutations, rngs=rngs)
+            with stage("dispatch", ref_name):
+                fut = run_gap_batch_group_async(parts, n_lanes=len(datas),
+                                                engine=engine, device=device,
+                                                mesh=mesh)
         # a dispatched group keeps what the decision reads: each window's
         # reads without their calls (views of the chromosome source's
         # slabs), its boundary reads, and each lane's row order
@@ -764,10 +764,7 @@ def run_jobs_batched(st, bam, jobs, group: int = 0, n_permutations: int = 1,
                 r.calls = r.quals = r.mmr = None
         perms = [d.perm for d in datas]
         del loaded, datas, parts
-        DISPATCH_STATS.setdefault("group_intervals", []).append(
-            [_time.perf_counter(), None])  # drain time filled at drain
-        pending.append((ji, kept, perms, errs, fut,
-                        len(DISPATCH_STATS["group_intervals"]) - 1))
+        pending.append((k, kept, perms, errs, fut))
         if len(pending) > pipe_depth:
             _drain_oldest()
     while pending:
@@ -783,17 +780,13 @@ def _drain_group(entry, decisions, tag_maps, n_permutations: int = 1,
     entry: (the group's (gap index, ReadSet) pairs, each lane's row order
     (GapDeviceData.perm), the failed permutes, the pending result); tag:
     the stages' tag (the chromosome)."""
-    import time as _time
     from ..utils.stats import stage
     from ..parallel.batch import DISPATCH_STATS
 
     loaded, perms, errs, fut = entry
-    w0 = _time.perf_counter()
     with stage("device_wait", tag):
         out = np.asarray(fut)  # blocks until the device batch finishes
-    DISPATCH_STATS["device_wait_s"] += _time.perf_counter() - w0
     DISPATCH_STATS["gaps_decided"] += len(loaded)
-    DISPATCH_STATS["real_lanes"] += len(perms)
     with stage("decide", tag):
         _decide(loaded, perms, errs, out, decisions, tag_maps, n_permutations)
 

@@ -317,16 +317,14 @@ def _run_batch(t: Dict[str, torch.Tensor], batch: GapBatch, engine: str):
     return out
 
 
-# dispatch observability, the keys of pomfret_tpu.parallel.batch's
-# DISPATCH_STATS plus kernel_launches (launches by kernel name), shapes
-# (batches dispatched by (G, R, S, D, nc_cap, layout), layout "runs" or
-# "dense") and the groups alive in engine_torch.run_jobs_batched (now and
-# at most)
+# dispatch observability: n_dispatches to gaps_decided as in
+# pomfret_tpu.parallel.batch's DISPATCH_STATS (its waits and intervals are
+# spans of utils.stats here), plus kernel_launches (launches by kernel
+# name), shapes (batches dispatched by (G, R, S, D, nc_cap, layout), layout
+# "runs" or "dense") and the groups alive in engine_torch.run_jobs_batched
+# (now and at most)
 DISPATCH_STATS = {"n_dispatches": 0, "n_devices_last": 1, "lanes_last": 0,
-                  "window_reads": 0,
-                  "gaps_decided": 0, "device_wait_s": 0.0, "real_lanes": 0,
-                  "prefetch_put_wait_s": 0.0, "prefetch_get_wait_s": 0.0,
-                  "prefetch_groups": 0, "prefetch_queue_depth_sum": 0,
+                  "window_reads": 0, "gaps_decided": 0,
                   "groups_in_flight": 0, "groups_in_flight_max": 0,
                   "kernel_launches": {name: 0 for name in KERNELS},
                   "shapes": {}}

@@ -585,35 +585,46 @@ def main_warmup(opt: CliOpt, device=None) -> int:
 
 def main_blockjoin(opt: CliOpt, device=None) -> int:
     """methphase (main_blockjoin, blockjoin.c:4643-4735). With --profile,
-    torch.profiler traces the gap joining (CPU activity, and CUDA activity
-    on the cuda engine) into <prefix>.profile/trace.json (trace.<rank>.json
-    for a process other than 0); a profiler that fails to start raises.
-    With several processes, process 0 alone writes the outputs."""
+    torch.profiler traces the whole pass (CPU activity on every thread the
+    pass starts, and CUDA activity on the cuda engine): the operators, the
+    kernels and the port's stages (utils.stats spans, as CPU ranges), into
+    <prefix>.profile/trace.json (trace.<rank>.json for a process other
+    than 0); a profiler that fails to start raises. With several
+    processes, process 0 alone writes the outputs."""
     config = MmrConfig(
         k=opt.k, k_span=opt.k_span, lo=opt.lo, hi=opt.hi,
         cov_known=opt.cov, cov_for_selection=opt.cov_for_selection,
         cov_for_runtime=opt.cov_for_selection * 2,
         readlen_threshold=opt.readlen_threshold, min_mapq=opt.mapq)
-    if opt.profile:
-        import torch
-        from torch.profiler import ProfilerActivity, profile
-        engine, dev = resolve_device(opt.engine, device)
-        opt = dataclasses.replace(opt, engine=engine)
-        acts = [ProfilerActivity.CPU]
+    if not opt.profile:
+        return _blockjoin_pass(opt, config, device)
+    import torch
+    from torch._C._profiler import _ExperimentalConfig
+    from torch.profiler import ProfilerActivity, profile
+    engine, dev = resolve_device(opt.engine, device)
+    opt = dataclasses.replace(opt, engine=engine)
+    acts = [ProfilerActivity.CPU]
+    if engine == "cuda":
+        acts.append(ProfilerActivity.CUDA)
+    # every thread: the loader thread's spans too (a private option of
+    # torch's, held on torch 2.11 and 2.13 by tests/test_torch_tracing.py)
+    with profile(activities=acts, experimental_config=_ExperimentalConfig(
+            profile_all_threads=True)) as prof:
+        rc = _blockjoin_pass(opt, config, device)
         if engine == "cuda":
-            acts.append(ProfilerActivity.CUDA)
-        with profile(activities=acts) as prof:
-            st = blockjoin_parallel(opt, config, device)
-            if engine == "cuda":
-                torch.cuda.synchronize(dev)
-        out_dir = opt.output_prefix + ".profile"
-        os.makedirs(out_dir, exist_ok=True)
-        rank = distributed.process_index()
-        name = f"trace.{rank}.json" if rank else "trace.json"
-        prof.export_chrome_trace(os.path.join(out_dir, name))
-        log_info("main_blockjoin", f"profiler trace -> {out_dir}/{name}")
-    else:
-        st = blockjoin_parallel(opt, config, device)
+            torch.cuda.synchronize(dev)
+    out_dir = opt.output_prefix + ".profile"
+    os.makedirs(out_dir, exist_ok=True)
+    rank = distributed.process_index()
+    name = f"trace.{rank}.json" if rank else "trace.json"
+    prof.export_chrome_trace(os.path.join(out_dir, name))
+    log_info("main_blockjoin", f"profiler trace -> {out_dir}/{name}")
+    return rc
+
+
+def _blockjoin_pass(opt: CliOpt, config: MmrConfig, device) -> int:
+    """main_blockjoin's pass: join the gaps, decide, write."""
+    st = blockjoin_parallel(opt, config, device)
     lift_decisions(st)
     make_decisions_flippings_onraw(st)
     generate_new_phase_blocks(st, use_raw=True)

@@ -34,6 +34,9 @@ from pomfret_tpu_torch.parallel import distributed as td
 from pomfret_tpu_torch.testing import (free_port,
                                        make_multichrom_multigap_scenario,
                                        run_processes)
+import torch_jax_native
+
+torch_jax_native.ready()  # the JAX package's native library, built once
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ONE_THREAD = {"OMP_NUM_THREADS": "1"}  # processes share the test's cores

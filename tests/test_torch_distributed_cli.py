@@ -15,6 +15,9 @@ import pytest
 from pomfret_tpu.cli import main as tpu_main
 from pomfret_tpu_torch.cli import main as port_main
 from pomfret_tpu_torch.testing import make_two_block_scenario, run_processes
+import torch_jax_native
+
+torch_jax_native.ready()  # the JAX package's native library, built once
 
 ONE_THREAD = {"OMP_NUM_THREADS": "1"}  # processes share the test's cores
 

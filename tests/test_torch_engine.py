@@ -35,6 +35,9 @@ from pomfret_tpu_torch.kernels import engine_fused3 as tf3
 from pomfret_tpu_torch.testing import (CRAFTED_LANES, N_FUZZ,
                                        NEAR_TIE_LANES, crafted_args,
                                        fuzz_args, near_tie_args, wide_args)
+import torch_jax_native
+
+torch_jax_native.ready()  # the JAX package's native library, built once
 
 torch.set_num_threads(1)
 

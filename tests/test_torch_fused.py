@@ -36,6 +36,9 @@ from pomfret_tpu_torch.kernels import engine_fused as tf
 from pomfret_tpu_torch.kernels import engine_fused3 as tf3
 from pomfret_tpu_torch.parallel import batch as tb
 from pomfret_tpu_torch.testing import N_FUZZ, fuzz_args, near_tie_args
+import torch_jax_native
+
+torch_jax_native.ready()  # the JAX package's native library, built once
 
 torch.set_num_threads(1)
 

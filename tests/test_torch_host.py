@@ -17,6 +17,9 @@ from pomfret_tpu.cli import main as tpu_main
 from pomfret_tpu_torch.cli import main as port_main
 from pomfret_tpu_torch.testing import (make_multichrom_multigap_scenario,
                                        make_two_block_scenario)
+import torch_jax_native
+
+torch_jax_native.ready()  # the JAX package's native library, built once
 
 torch.set_num_threads(1)
 

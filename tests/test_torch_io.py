@@ -33,6 +33,9 @@ from pomfret_tpu_torch.io import native as port_native
 from pomfret_tpu_torch.io.bam import BamReader
 from pomfret_tpu_torch.io.bam_writer import encode_record
 from pomfret_tpu_torch.io.cram import CramReader
+import torch_jax_native
+
+torch_jax_native.ready()  # the JAX package's native library, built once
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -32,6 +32,7 @@ from pomfret_tpu_torch.kernels import engine_torch
 from pomfret_tpu_torch.parallel import batch as tb
 from pomfret_tpu_torch.parallel.batch import DISPATCH_STATS
 from pomfret_tpu_torch.utils import stats
+import torch_jax_native
 
 torch.set_num_threads(1)
 
@@ -122,6 +123,9 @@ def test_groups_in_flight_bounded(pipelined):
                                    BamReader.SCAN_CHUNK])
 def test_scan_columns_chunked_equals_whole(scenario, chunk):
     from pomfret_tpu.io.bam import BamReader as JBam
+    # here, not as the module is imported: the card runs the module's card
+    # test, and the JAX package is not built there
+    torch_jax_native.ready()
     bam, _ = scenario
     ref, _ = JBam(bam).scan_columns()
     got, buf = BamReader(bam).scan_columns(chunk_bytes=chunk)

@@ -23,6 +23,9 @@ from pomfret_tpu.parallel import batch as jb
 from pomfret_tpu.testing import make_two_block_scenario
 from pomfret_tpu_torch.kernels import engine_torch as et
 from pomfret_tpu_torch.parallel import batch as tb
+import torch_jax_native
+
+torch_jax_native.ready()  # the JAX package's native library, built once
 
 torch.set_num_threads(1)
 

@@ -28,6 +28,9 @@ from pomfret_tpu.testing import (make_multichrom_multigap_scenario,
 from pomfret_tpu_torch import resolve_device
 from pomfret_tpu_torch.cli import main as port_main
 from pomfret_tpu_torch.parallel.batch import DISPATCH_STATS
+import torch_jax_native
+
+torch_jax_native.ready()  # the JAX package's native library, built once
 
 torch.set_num_threads(1)
 

@@ -22,6 +22,9 @@ import torch
 from pomfret_tpu_torch.tools import profile_loader, profile_pack
 from test_torch_pack import _assert_same_group
 from torch_accuracy_cases import small_dense
+import torch_jax_native
+
+torch_jax_native.ready()  # the JAX package's native library, built once
 
 torch.set_num_threads(1)
 

@@ -34,6 +34,9 @@ from pomfret_tpu_torch.testing import (NATIVE_CHECKS, Spawned,
                                        first_difference, parity_diffs,
                                        parity_outputs, parity_run,
                                        scenario_files)
+import torch_jax_native
+
+torch_jax_native.ready()  # the JAX package's native library, built once
 
 torch.set_num_threads(1)
 

@@ -7,6 +7,9 @@ import importlib.util
 import os
 
 from pomfret_tpu_torch.testing import cached_dataset, dense_params
+import torch_jax_native
+
+torch_jax_native.ready()  # the JAX package's native library, built once
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -21,6 +21,9 @@ from pomfret_tpu_torch.testing import (PARITY_RUNS, PARITY_SCENARIOS,
                                        Spawned, parity_diffs,
                                        parity_outputs, parity_run,
                                        scenario_files)
+import torch_jax_native
+
+torch_jax_native.ready()  # the JAX package's native library, built once
 
 PORT_ENGINES = ("torch", "host")
 

@@ -21,6 +21,9 @@ from pomfret_tpu_torch.io.bam import BamReader
 from pomfret_tpu_torch.kernels import engine_torch as et
 from pomfret_tpu_torch.parallel import batch as tb
 from pomfret_tpu_torch import testing as T
+import torch_jax_native
+
+torch_jax_native.ready()  # the JAX package's native library, built once
 
 N_CAND, COV = 14, 10
 
