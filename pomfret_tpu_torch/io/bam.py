@@ -8,10 +8,11 @@ from __future__ import annotations
 
 import struct
 import threading as _threading
+import zlib
 from typing import Iterator, List, Optional, Tuple
 
 from ..utils.stats import count
-from .bgzf import BgzfReader
+from .bgzf import BgzfReader, _parse_block_header
 
 # generation toggle for the process-global reuse arenas (_inflate_range
 # reuse=True): per-thread so concurrent readers on different threads get
@@ -297,6 +298,46 @@ class BaiIndex:
         return merged
 
 
+def _record_head(raw, voff: int) -> Optional[Tuple[int, int]]:
+    """(refID, pos) of the record at virtual offset `voff` of the BGZF
+    bytes `raw`: its first 12 plain bytes (block_size, refID, pos),
+    inflated from the start of its block as far as they reach, and from
+    the next block where they cross the block's end. None where the file
+    ends first or a block is not BGZF."""
+    b, skip = voff >> 16, voff & 0xFFFF
+    head = b""
+    view = memoryview(raw)
+    while len(head) < 12 and b < len(raw):
+        try:
+            data_start, bsize = _parse_block_header(raw, b)
+            plain = zlib.decompressobj(-15).decompress(
+                view[data_start:b + bsize - 8], skip + 12 - len(head))
+        except (ValueError, IndexError, struct.error, zlib.error):
+            return None
+        head += plain[skip:]  # nothing where the offset is the block's end
+        skip = 0
+        b += bsize
+    if len(head) < 12:
+        return None
+    return struct.unpack_from("<ii", head, 4)
+
+
+def chunks_before(raw, chunks, tid: int, end: int):
+    """The BAI chunks of a region on `tid` ending at `end`, in file order,
+    up to the first whose first record lies past the region (on `tid` at
+    or past `end`, or on a later reference): that one and every later one
+    dropped. In a coordinate-sorted file every record they hold starts at
+    or after that record, so a region's load reads nothing of them. The
+    first record of each chunk up to that one is read (_record_head);
+    one that cannot be read keeps its chunk."""
+    for k, (cb, _) in enumerate(chunks):
+        head = _record_head(raw, cb)
+        if head is not None and (head[0] > tid
+                                 or (head[0] == tid and head[1] >= end)):
+            return chunks[:k]
+    return chunks
+
+
 # ---------------------------------------------------------------------------
 # BAM reader
 # ---------------------------------------------------------------------------
@@ -564,7 +605,14 @@ class BamReader:
         reuse_buffer: decompress into the thread-local double-buffered
         arena (returned buffer valid until the next-but-one reuse call on
         this thread) instead of a fresh allocation + the rolling span
-        cache — the chrom-source segment-scan contract."""
+        cache — the chrom-source segment-scan contract.
+
+        The region's BAI chunks stop at the first that starts past the
+        region (chunks_before; the chunks it drops add to the counter
+        source_chunks_pruned, utils.stats): 20 kb reads fall in the 1 Mb
+        and 8 Mb bins, whose chunks lie all along the reference. The load
+        would read nothing of them, so the columns are those of the whole
+        list; only n_parsed is less, by one record a chunk dropped."""
         tid = self.ref_id(chrom)
         if tid < 0:
             return {"n": 0, "n_parsed": 0, "has_implicit": False,
@@ -578,7 +626,10 @@ class BamReader:
             return None, None
         if not native.native_available():
             return None, None
-        chunks = idx.chunks_for_region(tid, beg, end)
+        every = idx.chunks_for_region(tid, beg, end)
+        raw = self._bgzf._raw
+        chunks = chunks_before(raw, every, tid, end)
+        count("source_chunks_pruned", len(every) - len(chunks))
         import numpy as np
         if not chunks:
             buf = np.empty(0, dtype=np.uint8)
@@ -591,8 +642,6 @@ class BamReader:
         # chunks are genomically adjacent, so the union is barely larger
         # than their sum) and index each chunk into the single plain buffer
         # — no per-chunk inflation, no multi-MB np.concatenate per window
-        from .bgzf import _parse_block_header
-        raw = self._bgzf._raw
         b_lo = min(cb >> 16 for cb, _ in chunks)
         s_end = 0
         for _, ce in chunks:

@@ -1730,6 +1730,47 @@ def make_weird_hp_scenario(tmpdir: str):
         else hap + 1)
 
 
+def make_binned_bam(path: str, ref_len: int = 2_400_000,
+                    last: int = 2_230_000, step: int = 1_500,
+                    span: int = 20_000, seq_len: int = 4_000, seed: int = 0,
+                    pad: Optional[dict] = None) -> List[str]:
+    """A sorted, indexed BAM (and `path`.bai) of one chromosome `c1` of
+    `ref_len` bases, a read starting every `step` bases from 0 to `last`,
+    each over `span` bases of the reference: its `seq_len` bases of
+    sequence split by one deletion, so that 20 kb reads land in the BAI's
+    128 kb, 1 Mb and 8 Mb bins as ONT reads do, in little room. Haplotypes
+    1 and 2 alternate (HP), every third read is reverse, and every C of a
+    read's own orientation carries an MM/ML call (`seed` draws the bases
+    and the probabilities). pad {qname: n}: that read takes an n-byte
+    (n >= 4) XP:Z tag, which moves every later record n plain bytes on.
+    Returns the reads' names in file order."""
+    rng = np.random.default_rng(seed)
+    half = seq_len // 2
+    cigar = [("M", half), ("D", span - seq_len), ("M", seq_len - half)]
+    names, recs = [], []
+    for i, pos in enumerate(range(0, last + 1, step)):
+        qn = f"r{i:05d}"
+        bases = np.frombuffer(b"ATG", dtype=np.uint8)[
+            rng.integers(0, 3, seq_len)].copy()
+        bases[rng.integers(0, seq_len - 1, seq_len // 25)] = ord("C")
+        seq = bases.tobytes().decode()
+        rev = i % 3 == 2
+        n_c = (revcomp(seq) if rev else seq).count("C")
+        tags = [("HP", "C", i % 2 + 1),
+                ("MM", "Z", "C+m?" + ",0" * n_c + ";"),
+                ("ML", "B:C", rng.integers(0, 256, n_c).tolist())]
+        if pad and qn in pad:
+            tags.append(("XP", "Z", "x" * (pad[qn] - 4)))
+        recs.append(make_record(qn, 0, pos, seq, cigar,
+                                flag=16 if rev else 0, tags=tags))
+        names.append(qn)
+    with BamWriter(path, ["c1"], [ref_len], keep_index_info=True) as w:
+        for r in recs:
+            w.write(r)
+    w.build_index(n_ref=1)
+    return names
+
+
 def _write_blocks_gtf(path: str, sr: SynthRegion, blocks) -> None:
     """The phase blocks of tests/test_cli_extra.py's GTF input: one exon
     from each block's first to its last SNP."""

@@ -59,8 +59,10 @@ STAGE_EVENTS: Optional[List[Span]] = None
 
 # work counted at the layers' boundaries, by name: the records the
 # chromosome source's native loads parse, kept or not, and the plain bytes
-# they inflate (source_records, source_plain_bytes), and the plain bytes
-# the coverage scan inflates (scan_plain_bytes); count() adds under a
+# they inflate (source_records, source_plain_bytes), the BAI chunks past
+# the region that each BAM region fetch drops unread (source_chunks_pruned,
+# io/bam.py fetch_window_columnar), and the plain bytes the coverage scan
+# inflates (scan_plain_bytes); count() adds under a
 # lock, since the decode runs on the loader thread and its pipe worker
 COUNTERS: Dict[str, int] = {}
 _COUNT_LOCK = threading.Lock()

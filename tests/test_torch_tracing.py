@@ -18,7 +18,7 @@
 - on a tiny methphase pass the counters count what they name: the
   decode's records (at least the distinct reads of the windows), the
   coverage scan's plain bytes (the BGZF blocks' ISIZE from the block the
-  header ends in to the file's end), and the benchmark's four readers of
+  header ends in to the file's end), and the benchmark's five readers of
   them read a value;
 - the dispatch counters that spans replaced are gone.
 """
@@ -394,7 +394,8 @@ def test_segment_fetch_is_a_span_of_the_group(scenario, monkeypatch, pipe):
 
 @pytest.mark.parametrize("metric", [
     "decode_reads_per_window_read", "decode_plain_mib_per_s",
-    "scan_plain_mib_per_s", "group_wait_share_pct"])
+    "scan_plain_mib_per_s", "group_wait_share_pct",
+    "decode_plain_kib_per_window_read"])
 def test_benchmark_reader_reads_the_pass(one_pass, monkeypatch, metric):
     monkeypatch.setattr(stats, "COUNTERS", dict(one_pass["counters"]))
     spec = importlib.util.spec_from_file_location(
