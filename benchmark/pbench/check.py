@@ -111,13 +111,30 @@ def _lines_differing(a: List[str], b: List[str]) -> int:
                != (b[i] if i < len(b) else None))
 
 
+def _record(line: str):
+    """The manifest record a line holds, or None where it holds none (a
+    line torn by two processes writing one manifest at once)."""
+    try:
+        e = json.loads(line)
+    except ValueError:
+        return None
+    if not (isinstance(e, dict) and {"ref", "start", "end"} <= set(e)
+            and type(e.get("decision")) is int
+            and isinstance(e.get("tags"), dict)):
+        return None
+    return e
+
+
 def read_manifest(path: str) -> List[dict]:
+    """The records of a manifest; a line that holds none is left out, so
+    the gaps it would have recorded count as missing."""
     out = []
     if os.path.exists(path):
-        with open(path) as f:
+        with open(path, errors="replace") as f:
             for line in f:
-                if line.strip():
-                    out.append(json.loads(line))
+                e = _record(line) if line.strip() else None
+                if e is not None:
+                    out.append(e)
     return out
 
 

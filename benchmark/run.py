@@ -17,8 +17,12 @@ whole CLI passes in this process, as a user's run of one genome each
 (`pomfret_tpu_torch.cli.main([subcommand, ...])`, each with an empty
 POMFRET_SPOOL_DIR, so each pays the coverage scan), until --seconds have
 passed; the log gives each pass's wall, CPU and the host's steal
-(pbench/host.py). Once it has closed, the plain reference
-(pbench/oracle.py, driven by pbench/check.py) judges the passes' outputs.
+(pbench/host.py). Where the configuration names `procs` P > 1, each pass
+(the warm pass too) is one of a gloo group of P ranks on this host, this
+process rank 0 and P - 1 started at set-up (pbench/ranks.py): a pass ends
+when its last rank ends, and the peaks are the sums of the ranks'. Once
+the window has closed, the plain reference (pbench/oracle.py, driven by
+pbench/check.py) judges the passes' outputs.
 With --trace 1 the window runs under
 torch.profiler and the per-layer metrics are printed in place of the
 end-to-end ones. The last line of standard output is the result.
@@ -47,11 +51,17 @@ for _p in (ROOT, HERE):  # the port at the checkout's root, pbench here
         sys.path.insert(0, _p)
 
 from pbench import rss  # noqa: E402  (first: it reads the inherited peak)
-from pbench import check, host  # noqa: E402
+from pbench import check, host, ranks  # noqa: E402
 
 FORBIDDEN = ("jax", "jaxlib", "flax", "pomfret_tpu")
 CACHE = os.path.join(HERE, ".cache")
 KEEP_SETS = 12  # sets kept a configuration: a check draws 6 seeds a cell
+# a group pass's deadline (procs > 1): the warm pass, which may build the
+# kernels, WARM_DEADLINE_S; a window pass the larger of DEADLINE_FLOOR_S
+# and DEADLINE_WARM_TIMES times the warm pass's wall
+WARM_DEADLINE_S = 1200.0
+DEADLINE_FLOOR_S = 300.0
+DEADLINE_WARM_TIMES = 10.0
 
 
 def log(msg: str) -> None:
@@ -60,8 +70,9 @@ def log(msg: str) -> None:
 
 
 def load_spec(root: str, workload: str) -> dict:
-    """The cell, its configuration, its traffic and its per-layer metrics,
-    from BENCHMARK.json at `root`."""
+    """The cell, its configuration, its traffic, its per-layer metrics and
+    its ranks (the configuration's `procs`, 1 where it names none), from
+    BENCHMARK.json at `root`."""
     with open(os.path.join(root, "BENCHMARK.json")) as f:
         bench = json.load(f)
     cell = next((w for w in bench["workloads"] if w["name"] == workload),
@@ -71,6 +82,9 @@ def load_spec(root: str, workload: str) -> dict:
     conf = next(c for c in bench["configs"] if c["name"] == cell["config"])
     with open(os.path.join(root, conf["file"])) as f:
         config = json.load(f)
+    procs = config.get("procs", 1)
+    if type(procs) is not int or procs < 1:
+        raise SystemExit(f"{conf['file']}: procs {procs!r} is not a count")
     with open(os.path.join(HERE, "traffic", cell["traffic"] + ".json")) as f:
         traffic = json.load(f)
     e2e = [m for m in bench["end_to_end"]
@@ -80,7 +94,8 @@ def load_spec(root: str, workload: str) -> dict:
              if workload in m.get("workloads", [workload] if m["moves"]
                                   in names else [])]
     return dict(cell=cell, config=config, config_file=os.path.join(
-        root, conf["file"]), traffic=traffic, end_to_end=e2e, per_layer=layer)
+        root, conf["file"]), traffic=traffic, end_to_end=e2e, per_layer=layer,
+        procs=procs)
 
 
 def make_set(spec: dict, seed: int, cache: str) -> dict:
@@ -164,11 +179,15 @@ def power_limit() -> str:
 
 
 def run(args, spec: dict, *, cpu: bool = False, cache: str = CACHE,
-        ref_procs: int = 0) -> int:
+        ref_procs: int = 0, prelude=()) -> int:
     """One run of the cell. cpu: skip the look for a card and run the
-    port's plain torch loop on the CPU (the harness's own tests)."""
+    port's plain torch loop on the CPU (the harness's own tests). With
+    spec's procs P > 1, every pass is a pass of a gloo group of P ranks on
+    this host (pbench/ranks.py), this process rank 0; `prelude` is handed
+    to the other ranks (ranks.Group)."""
     cell, traffic = spec["cell"], spec["traffic"]
     chips = int(cell.get("chips", 1))
+    n_ranks = spec.get("procs", 1)
     for k in ("TORCH_EXTENSIONS_DIR", "TRITON_CACHE_DIR"):
         os.environ[k] = os.path.join(cache, k.lower())
     os.environ["USE_FLAX"] = "0"
@@ -190,7 +209,7 @@ def run(args, spec: dict, *, cpu: bool = False, cache: str = CACHE,
     log(f"{len(wins)} windows a pass, {per_pass} window reads")
 
     from pomfret_tpu_torch import cli
-    from pomfret_tpu_torch.parallel import batch
+    from pomfret_tpu_torch.parallel import batch, distributed
     from pomfret_tpu_torch.utils import stats
 
     work_dir = tempfile.mkdtemp(prefix="pbench-")
@@ -203,52 +222,72 @@ def run(args, spec: dict, *, cpu: bool = False, cache: str = CACHE,
     engine = ["--engine", "torch", "--device", "cpu"] if cpu else \
         ["--engine", "cuda"]
 
-    def one_pass(name: str) -> str:
+    group = None
+    own_walls: list = []
+
+    def one_pass(name: str, deadline_s: float = WARM_DEADLINE_S,
+                 window: bool = False) -> tuple:
+        """(the pass's output prefix, the other ranks' answers)."""
         d = os.path.join(work_dir, name)
         os.makedirs(os.path.join(d, "spool"))
         os.environ["POMFRET_SPOOL_DIR"] = os.path.join(d, "spool")
         prefix = os.path.join(d, "out")
-        rc = None
-        try:
-            with into(plog):
-                rc = cli.main([sub, "-o", prefix, "--vcf", got["vcf"],
-                               *flags, *engine, got["bam"]])
-        finally:
+        argv = [sub, "-o", prefix, "--vcf", got["vcf"], *flags, *engine,
+                got["bam"]]
+
+        def own() -> None:
+            rc = None
+            t = time.perf_counter()
+            try:
+                with into(plog):
+                    rc = cli.main(argv)
+            finally:
+                if rc != 0:
+                    with open(plog, errors="replace") as f:
+                        log(f"pass {name} failed; the port's log ends:\n"
+                            + f.read()[-6000:])
             if rc != 0:
-                with open(plog, errors="replace") as f:
-                    log(f"pass {name} failed; the port's log ends:\n"
-                        + f.read()[-6000:])
-        if rc != 0:
-            raise RuntimeError(f"pass {name} exited {rc}")
-        return prefix
+                raise RuntimeError(f"pass {name} exited {rc}")
+            if window:
+                own_walls.append(time.perf_counter() - t)
+
+        if group is None:
+            own()
+            return prefix, []
+        return prefix, group.run_pass(
+            name, argv, os.environ["POMFRET_SPOOL_DIR"], own, deadline_s)
 
     try:
+        if n_ranks > 1:
+            group = ranks.Group(
+                n_ranks, work_dir, cpu=cpu, prelude=prelude,
+                cleanup=lambda: shutil.rmtree(work_dir, ignore_errors=True))
         r0 = batch.DISPATCH_STATS["window_reads"]
-        shutil.rmtree(os.path.dirname(one_pass("warm")))
-        log(f"warm pass: the port counted "
-            f"{batch.DISPATCH_STATS['window_reads'] - r0} window reads")
+        t_warm = time.perf_counter()
+        prefix, others = one_pass("warm")
+        warm_s = time.perf_counter() - t_warm
+        shutil.rmtree(os.path.dirname(prefix))
+        warm_reads = batch.DISPATCH_STATS["window_reads"] - r0 + sum(
+            a["window_reads"] for a in others)
+        log(f"warm pass: the port counted {warm_reads} window reads")
+        deadline_s = max(DEADLINE_FLOOR_S, DEADLINE_WARM_TIMES * warm_s)
+        if group is not None:
+            log(f"group of {n_ranks} ranks: warm pass {warm_s:.3f} s, "
+                f"rank walls " + " ".join(f"{a['wall']:.3f}"
+                                          for a in others)
+                + f"; a window pass's deadline {deadline_s:.1f} s")
+            group.open_window(bool(args.trace), deadline_s)
         stats.reset_stages()
-        if args.trace:
-            from torch.profiler import (ProfilerActivity, profile,
-                                        record_function)
-            from pbench import devtrace, roofline
-            stats.record_stage_events(True)
-            loop = roofline.LoopBytes(batch.run_batch_fused3)
-            batch.run_batch_fused3 = loop
-            acts = [ProfilerActivity.CPU] + (
-                [] if cpu else [ProfilerActivity.CUDA])
-            prof = profile(activities=acts)
-            prof.__enter__()
-            t_mark = time.perf_counter()
-            marker = record_function(devtrace.MARKER)
-            marker.__enter__()
+        dist0 = dict(distributed.DIST_STATS)
+        trace = ranks.WindowTrace(cpu) if args.trace else None
         t0 = time.perf_counter()
         setup_s = t0 - T_START
         r0 = batch.DISPATCH_STATS["window_reads"]
         prefixes, ends = [], []
         probe = host.PassProbe(stats.STAGE_SECONDS)
         while True:
-            prefixes.append(one_pass(f"p{len(prefixes)}"))
+            prefixes.append(one_pass(f"p{len(prefixes)}", deadline_s,
+                                     window=True)[0])
             t1 = time.perf_counter()
             ends.append(t1)
             probe.mark()
@@ -256,11 +295,21 @@ def run(args, spec: dict, *, cpu: bool = False, cache: str = CACHE,
                 break
         if not cpu:
             torch.cuda.synchronize()
+        if group is not None:
+            group.request_end()
         window_s = t1 - t0
-        port_reads = batch.DISPATCH_STATS["window_reads"] - r0
-        sampler.__exit__(None, None, None)
-        peak_mib = rss.run_peak_mib(sampler)
         n = len(prefixes)
+        every = [ranks.closing(0, sampler, trace, dict(dist=dist0, reads=r0),
+                               own_walls, cpu)]
+        if group is not None:
+            every += group.collect_end(deadline_s)
+        # each a sum over the ranks; with one rank, that rank's reading
+        peak_mib = sum(r["peak_rss_mib"] for r in every)
+        port_reads = sum(r["window_reads"] for r in every)
+        device = dict(platform="cpu" if cpu else "gpu",
+                      kind="cpu" if cpu else torch.cuda.get_device_name(0),
+                      count=chips, memory_peak_bytes=sum(
+                          r["memory_peak_bytes"] for r in every))
         log(f"window: {n} passes in {window_s:.3f} s; the port counted "
             f"{port_reads} window reads, the benchmark {n * per_pass}")
         log("pass walls (s): " + " ".join(
@@ -269,29 +318,27 @@ def run(args, spec: dict, *, cpu: bool = False, cache: str = CACHE,
             log(line)
         log("stage seconds over the window: " + json.dumps(
             {k: round(v, 3) for k, v in sorted(stats.STAGE_SECONDS.items())}))
-        device = dict(platform="cpu" if cpu else "gpu",
-                      kind="cpu" if cpu else torch.cuda.get_device_name(0),
-                      count=chips,
-                      memory_peak_bytes=0 if cpu else int(
-                          torch.cuda.max_memory_reserved()))
+        if group is not None:
+            for r in every:
+                log(f"rank {r['rank']}: " + json.dumps(dict(
+                    peak_rss_mib=r["peak_rss_mib"],
+                    memory_peak_bytes=r["memory_peak_bytes"],
+                    window_reads=r["window_reads"], dist=r["dist"],
+                    walls=[round(w, 3) for w in r["walls"]],
+                    stage_s={k: round(v, 3)
+                             for k, v in sorted(r["stage_s"].items())})))
+            log(f"peak_rss_mib: the sum of the {n_ranks} ranks' peaks; "
+                "memory_peak_bytes: the sum of their reserved peaks")
         breakdown = None
-        if args.trace:
-            marker.__exit__(None, None, None)
-            prof.__exit__(None, None, None)
-            batch.run_batch_fused3 = loop.fn
-            ivs = devtrace.device_events(prof, t_mark)
-            del prof
-            events = stats.STAGE_EVENTS
-            stats.record_stage_events(False)
-            busy = devtrace.busy_s(ivs, t0, t1)
+        if trace is not None:
+            from pbench import devtrace, roofline
+            ivs, busy, loop_kernel, by_rank = ranks.union(every, t0, t1)
             rec = dict(
                 window_s=window_s, passes=n, window_reads=n * per_pass,
                 stage_s=dict(stats.STAGE_SECONDS), busy_s=busy,
-                loop_kernel=dict(
-                    launches=len(loop.counts), bytes=loop.total_bytes(),
-                    device_s=sum(t - s for s, t, name in ivs
-                                 if "loop_kernel" in name)),
-                hbm_bytes_per_s=roofline.hbm_bytes_per_s(device["kind"]))
+                loop_kernel=loop_kernel,
+                hbm_bytes_per_s=roofline.hbm_bytes_per_s(device["kind"]),
+                ranks=by_rank)
             metrics = {}
             for m in spec["per_layer"]:
                 v = load_metric(m["name"])(rec)
@@ -300,8 +347,15 @@ def run(args, spec: dict, *, cpu: bool = False, cache: str = CACHE,
             device.update(busy_s=busy, window_s=window_s)
             breakdown = dict(device_ops=devtrace.top_ops(ivs, t0, t1),
                              idle_gaps=devtrace.idle_by_stage(
-                                 ivs, events, t0, t1))
-            del ivs, events
+                                 ivs, trace.events, t0, t1))
+            if group is not None:
+                log(f"breakdown: device_ops and idle time from the union of "
+                    f"the {n_ranks} ranks' device operations; idle_gaps by "
+                    "rank 0's stage events")
+                log("busy_s by rank: " + " ".join(
+                    f"{r['busy_s']!r}" for r in by_rank)
+                    + f"; union {busy!r}")
+            del ivs, trace
         else:
             values = dict(window_reads_per_s=n * per_pass / window_s,
                           peak_rss_mib=peak_mib, setup_s=setup_s)
@@ -322,12 +376,20 @@ def run(args, spec: dict, *, cpu: bool = False, cache: str = CACHE,
         log(f"reference: {len(wins)} windows in {procs} processes, "
             f"{time.perf_counter() - t_ref:.2f} s")
     finally:
+        if group is not None:
+            group.close()
         shutil.rmtree(work_dir, ignore_errors=True)
 
     bad = forbidden_loaded(list(sys.modules))
     if bad:
         log(f"modules loaded that the benchmark must not load: {bad}")
         return 3
+    for r in every[1:]:
+        bad = forbidden_loaded(r.get("modules", []))
+        if bad:
+            log(f"modules loaded in rank {r['rank']} that the benchmark must "
+                f"not load: {bad}")
+            return 3
     for k, v in checked.items():
         sys.stderr.write(f"{k} {v['value']} limit {v['limit']}\n")
     sys.stderr.flush()

@@ -30,7 +30,7 @@ def test_harness_reference_and_port_import_no_jax():
         "import sys, json; sys.path[:0] = [%r, %r]\n"
         "import run, control\n"
         "from pbench import check, devtrace, host, maker, oracle, "
-        "roofline, rss\n"
+        "ranks, roofline, rss\n"
         "import pomref.io.bam_writer, pomref.io.records\n"
         "import pomfret_tpu_torch.cli, pomfret_tpu_torch.pipeline\n"
         "print(json.dumps(sorted({k.split('.')[0] for k in sys.modules})))"
