@@ -5,14 +5,18 @@ Processes are peers of one gloo process group. Every process builds the
 same global gap (or report window) index from the same VCF; gaps are dealt
 round-robin over the processes (assign_gaps: the gap is the unit, so no
 read is decided twice). Each process loads only its own gaps' windows and
-runs them on its own devices; the per-gap decisions and the read tags are
-then all-gathered (allgather_decisions, allgather_tag_maps), so every
-process holds the whole result and process 0 writes outputs equal to a
-one-process run.
+runs them on its own devices; the per-gap decisions, the read tags and
+the manifest lines are then all-gathered (allgather_decisions,
+allgather_tag_maps, allgather_manifest), so every process holds the whole
+result and process 0 writes outputs equal to a one-process run. Each
+all-gather is a span of its own (utils.stats.stage: allgather_decisions,
+allgather_tags, allgather_manifest) that holds the wait for the slowest
+process.
 
 Every collective runs on gloo, with a card too: what is gathered is host
-numpy (a decision vector, a name blob and a tag vector), gloo spans hosts
-over TCP, and it takes two ranks on one GPU, which NCCL refuses.
+numpy (a decision vector, a name blob, a tag vector and a blob of
+manifest lines), gloo spans hosts over TCP, and it takes two ranks on one
+GPU, which NCCL refuses.
 
 The pure-numpy helpers (assign_gaps, _pack_tag_map,
 _merge_packed_tag_maps) are copies of the JAX package's.
@@ -24,6 +28,8 @@ import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
+
+from ..utils.stats import stage
 
 # all-gather seconds and payload bytes this process contributed, and the
 # number of all-gathers (the JAX package's keys)
@@ -106,7 +112,8 @@ def allgather_decisions(local: Dict[int, int], n_gaps: int) -> np.ndarray:
         out = vec
     else:
         t0 = time.perf_counter()
-        out = _allgather(vec).max(axis=0).astype(np.int32)
+        with stage("allgather_decisions"):
+            out = _allgather(vec).max(axis=0).astype(np.int32)
         DIST_STATS["allgather_s"] += time.perf_counter() - t0
         DIST_STATS["allgather_bytes"] += int(vec.nbytes)
         DIST_STATS["n_allgathers"] += 1
@@ -154,18 +161,46 @@ def allgather_tag_maps(local: Dict[str, int]) -> Dict[str, int]:
     if process_count() == 1:
         return dict(local)
     t0 = time.perf_counter()
-    blob, tags = _pack_tag_map(local)
-    lens = _allgather(np.array([len(blob), len(tags)], dtype=np.int64))
-    mxb, mxt = max(1, int(lens[:, 0].max())), max(1, int(lens[:, 1].max()))
-    pb = np.zeros(mxb, dtype=np.uint8)
-    pb[: len(blob)] = blob
-    pt = np.zeros(mxt, dtype=np.int32)
-    pt[: len(tags)] = tags
-    all_blobs = _allgather(pb)
-    all_tags = _allgather(pt)
+    with stage("allgather_tags"):
+        blob, tags = _pack_tag_map(local)
+        lens = _allgather(np.array([len(blob), len(tags)], dtype=np.int64))
+        mxb, mxt = max(1, int(lens[:, 0].max())), max(1, int(lens[:, 1].max()))
+        pb = np.zeros(mxb, dtype=np.uint8)
+        pb[: len(blob)] = blob
+        pt = np.zeros(mxt, dtype=np.int32)
+        pt[: len(tags)] = tags
+        all_blobs = _allgather(pb)
+        all_tags = _allgather(pt)
     DIST_STATS["allgather_s"] += time.perf_counter() - t0
     DIST_STATS["allgather_bytes"] += int(pb.nbytes + pt.nbytes + 16)
     DIST_STATS["n_allgathers"] += 1
     return _merge_packed_tag_maps(
         [all_blobs[p, : int(lens[p, 0])] for p in range(len(lens))],
         [all_tags[p, : int(lens[p, 1])] for p in range(len(lens))])
+
+
+def allgather_manifest(local: Dict[int, str]) -> Dict[int, str]:
+    """All-gather manifest lines keyed by global gap index; the first
+    process wins where two hold one gap. As allgather_tag_maps, the
+    lengths go first, then one byte blob a process ("<gap> <line>\\n" a
+    line) padded to the largest (at least one byte)."""
+    if process_count() == 1:
+        return dict(local)
+    t0 = time.perf_counter()
+    with stage("allgather_manifest"):
+        blob = np.frombuffer("".join(f"{g} {line}\n" for g, line in
+                                     sorted(local.items())).encode(),
+                             dtype=np.uint8)
+        lens = _allgather(np.array([len(blob)], dtype=np.int64))[:, 0]
+        pb = np.zeros(max(1, int(lens.max())), dtype=np.uint8)
+        pb[: len(blob)] = blob
+        blobs = _allgather(pb)
+    DIST_STATS["allgather_s"] += time.perf_counter() - t0
+    DIST_STATS["allgather_bytes"] += int(pb.nbytes + 8)
+    DIST_STATS["n_allgathers"] += 1
+    merged: Dict[int, str] = {}
+    for p, n in enumerate(lens.tolist()):
+        for row in bytes(blobs[p, :n]).decode().split("\n")[:-1]:
+            g, line = row.split(" ", 1)
+            merged.setdefault(int(g), line)
+    return merged

@@ -42,8 +42,8 @@ from .io.writers import (output_gtf, output_modify_bam, output_modify_vcf,
                          output_tsv)
 from .parallel import distributed
 from .utils.log import Get_T, log_err, log_info, log_warn
-from .utils.manifest import ManifestWriter, load_manifest
-from .utils.stats import stage
+from .utils.manifest import entry_line, open_manifest, write_merged
+from .utils.stats import count, stage
 
 
 @dataclass
@@ -166,6 +166,7 @@ def estimate_read_coverage_cached(fn_bam: str, threads: int = 1) -> Dict[str, in
     import tempfile
 
     def scan() -> Dict[str, int]:
+        count("coverage_scans", 1)
         bam = open_alignment(fn_bam, threads=threads)
         return dict(zip(bam.ref_names, estimate_read_coverage_dirtyfast(bam)))
 
@@ -356,6 +357,31 @@ def _blockjoin_all_chroms_torch(st: Storage, fn_bam: str, config: MmrConfig,
     return qmaps
 
 
+def _merge_manifest(path: str, kept: Dict[Tuple[str, int], str], done,
+                    st: Storage, gap_global: Dict[Tuple[int, int], int],
+                    n_procs: int, proc_id: int) -> None:
+    """With several processes: every process's manifest lines (those it
+    wrote to its part, and a resumed run's records of its own gaps) are
+    all-gathered, and process 0 writes the whole manifest at `path`, each
+    gap once in global gap order, and removes the parts (write_merged)."""
+    count("manifest_records", len(kept))
+    mine: Dict[int, str] = {}
+    for (i_ref, i), gidx in gap_global.items():
+        if gidx % n_procs != proc_id:
+            continue
+        key = (st.ref_names[i_ref], i)
+        if key in kept:
+            mine[gidx] = kept[key]
+        elif done and key in done:
+            mine[gidx] = entry_line(done[key])
+    lines = distributed.allgather_manifest(mine)
+    if proc_id != 0:
+        return
+    with stage("manifest_merge"):
+        n = write_merged(path, (lines[g] for g in sorted(lines)))
+    count("manifest_records_merged", n)
+
+
 def blockjoin_parallel(opt: CliOpt, config: MmrConfig,
                        device=None) -> Storage:
     """Load gaps (+ optional varhaptag), then join per chromosome
@@ -363,7 +389,9 @@ def blockjoin_parallel(opt: CliOpt, config: MmrConfig,
     is where the torch engine runs (see resolve_device). With several
     processes, each decides the gaps of the global gap list dealt to it
     round-robin, and the decisions and tags are all-gathered, so every
-    process ends with the whole result."""
+    process ends with the whole result; each writes its manifest records
+    to a part of its own, and process 0 writes the whole manifest from the
+    gathered records (_merge_manifest)."""
     engine, dev = resolve_device(opt.engine, device)
     T = Get_T()
     st = Storage()
@@ -446,11 +474,11 @@ def blockjoin_parallel(opt: CliOpt, config: MmrConfig,
             return None
         return lambda i: gap_global[(i_ref, i)] % n_procs == proc_id
 
-    # every process opens the same manifest path, as the JAX package does
-    # (ROADMAP queue 3)
+    # with several processes, each writes a part of its own and process 0
+    # the whole manifest once the decisions are gathered (_merge_manifest)
     manifest_path = opt.output_prefix + ".mp.manifest.jsonl"
-    done = load_manifest(manifest_path) if opt.resume else None
-    manifest = ManifestWriter(manifest_path, append=bool(opt.resume))
+    done, manifest = open_manifest(manifest_path, bool(opt.resume), n_procs,
+                                   proc_id)
 
     if engine != "host":
         maps = _blockjoin_all_chroms_torch(st, opt.fn_bam, config,
@@ -489,6 +517,8 @@ def blockjoin_parallel(opt: CliOpt, config: MmrConfig,
         st.ranges[i_ref].decisions[i] = int(dec[gidx])
     st.qname2haptag.update(distributed.allgather_tag_maps(local_tags))
     if n_procs > 1:
+        _merge_manifest(manifest_path, manifest.kept, done, st, gap_global,
+                        n_procs, proc_id)
         log_info("blockjoin_parallel", f"multi-process merge: {n_procs} "
                  f"processes, {len(gap_global)} gaps")
     log_info("blockjoin_parallel", f"done, used {Get_T() - T:.1f}s.")

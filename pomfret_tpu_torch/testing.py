@@ -1589,7 +1589,7 @@ _PROC_MAIN = r"""
 import json, sys, time
 t0 = time.perf_counter()
 from pomfret_tpu_torch.parallel import batch, distributed
-from pomfret_tpu_torch.utils.stats import stage_report
+from pomfret_tpu_torch.utils.stats import counter_report, stage_report
 argv, mesh = json.loads(sys.argv[1]), json.loads(sys.argv[2])
 if mesh:
     batch.production_mesh = lambda device: batch.make_gap_mesh(mesh)
@@ -1599,7 +1599,7 @@ rc = main(argv)
 st = batch.DISPATCH_STATS
 print("RESULT " + json.dumps({
     "rc": rc, "import_s": t1 - t0, "wall_s": time.perf_counter() - t1,
-    "stages": stage_report(3),
+    "stages": stage_report(3), "counters": counter_report(),
     "kernel_launches": st["kernel_launches"],
     "gaps_decided": st["gaps_decided"], "n_dispatches": st["n_dispatches"],
     "n_devices_last": st["n_devices_last"], "lanes_last": st["lanes_last"],
@@ -1627,7 +1627,8 @@ def run_processes(argv: Sequence[str], n_procs: int, *, env=None,
     shared out. `mesh` (device names) replaces each process's
     production_mesh. Returns, in rank order, what each process did: rc,
     import_s (the port's and torch's imports), wall_s (the command),
-    stages (utils.stats seconds), kernel_launches, gaps_decided,
+    stages (utils.stats seconds), counters (utils.stats.COUNTERS),
+    kernel_launches, gaps_decided,
     n_dispatches, n_devices_last, lanes_last, dist (DIST_STATS) and loaded
     (the jax and pomfret_tpu* modules it loaded). Raises unless every process exits 0 within
     `timeout` seconds; the others are killed then."""

@@ -16,6 +16,16 @@
   and its .mp.bam carries the one-process run's HP tags;
   tests/test_torch_distributed_cli.py runs --n-permutations 7 and
   `report`. No process loads jax or the JAX package.
+- The manifest at 2 and 3 processes: process 0 writes every gap once, in
+  global gap order, with the one-process run's records, the same bytes on
+  every run, and no process's part is left beside it; a 2-process
+  `--resume` from a manifest that lacks one gap, with another gap's record
+  in a part that a 3-process run would leave, computes the missing gap
+  alone and ends with the whole run's manifest and outputs; each process
+  reports the all-gathers' spans and its manifest records, process 0 the
+  merge and the merged records. The manifest's parts on their own:
+  found by rank beside a manifest whose name holds glob characters,
+  merged and removed.
 Tolerance: exact (arrays equal, outputs byte-identical).
 """
 import json
@@ -34,6 +44,10 @@ from pomfret_tpu_torch.parallel import distributed as td
 from pomfret_tpu_torch.testing import (free_port,
                                        make_multichrom_multigap_scenario,
                                        run_processes)
+from pomfret_tpu_torch.utils.manifest import (load_manifest,
+                                              load_manifest_parts,
+                                              rank_part, rank_parts,
+                                              write_merged)
 import torch_jax_native
 
 torch_jax_native.ready()  # the JAX package's native library, built once
@@ -219,11 +233,138 @@ def test_two_process_methphase_multichrom(multichrom, multichrom_refs,
         # gaps 0, 2, 4 and 1, 3, 5 of chr1's 0-2 and chr2's 3-5
         assert [o["gaps_decided"] for o in outs] == [3, 3]
         for o in outs:
-            assert o["dist"]["n_allgathers"] == 2
+            assert o["dist"]["n_allgathers"] == 3
     for ref in multichrom_refs.values():
         _same_files(prefix, ref, (".mp.vcf", ".mp.gtf"))
     # the merged read tags: process order agrees with gap order here
     assert _hp_tags(prefix) == _hp_tags(multichrom_refs["port_torch"])
+
+
+def _manifest(prefix):
+    return prefix + ".mp.manifest.jsonl"
+
+
+def _left_beside(prefix):
+    """Files a run left beside its manifest: its parts, temporary files."""
+    d, base = os.path.split(_manifest(prefix))
+    return sorted(x for x in os.listdir(d) if x.startswith(base + "."))
+
+
+def _gap_order(records):
+    """The manifest's (ref, gap_i) keys in global gap order."""
+    return sorted(records, key=lambda k: (int(k[0].lstrip("chr")), k[1]))
+
+
+@pytest.fixture(scope="module")
+def manifest_runs(multichrom):
+    """methphase --engine torch in 2 and in 3 processes, each twice:
+    {n_procs: [(prefix, each process's result), ...]}."""
+    d, args = multichrom
+    runs = {}
+    for n in (2, 3):
+        runs[n] = []
+        for k in range(2):
+            prefix = os.path.join(d, f"manifest_{n}_{k}")
+            outs = run_processes(["methphase", "-o", prefix, "--engine",
+                                  "torch", *args], n, env=ONE_THREAD)
+            _check_procs(outs, n)
+            runs[n].append((prefix, outs))
+    return runs
+
+
+@pytest.mark.parametrize("n_procs", [2, 3])
+def test_processes_write_one_whole_manifest(multichrom_refs, manifest_runs,
+                                            n_procs):
+    one = load_manifest(_manifest(multichrom_refs["port_torch"]))
+    assert len(one) == 6
+    blobs = []
+    for prefix, outs in manifest_runs[n_procs]:
+        with open(_manifest(prefix)) as f:
+            lines = f.read().splitlines()
+        keys = [(e["ref"], e["gap_i"]) for e in map(json.loads, lines)]
+        assert len(keys) == len(set(keys)) == 6  # every gap once
+        assert keys == _gap_order(keys)
+        assert load_manifest(_manifest(prefix)) == one
+        assert _left_beside(prefix) == []
+        assert sum(o["gaps_decided"] for o in outs) == 6
+        with open(_manifest(prefix), "rb") as f:
+            blobs.append(f.read())
+    assert blobs[0] == blobs[1]
+
+
+def test_processes_report_the_gathers_and_the_merge(manifest_runs):
+    _, outs = manifest_runs[2][0]
+    for rank, o in enumerate(outs):
+        for name in ("allgather_decisions", "allgather_tags",
+                     "allgather_manifest"):
+            assert name in o["stages"], (rank, name)
+        assert o["counters"]["manifest_records"] == 3
+        assert ("manifest_merge" in o["stages"]) == (rank == 0)
+        assert o["counters"].get("manifest_records_merged") == \
+            (6 if rank == 0 else None)
+
+
+def test_resume_in_processes_computes_only_the_missing_gap(
+        multichrom, multichrom_refs, manifest_runs, tmp_path):
+    """From a whole 2-process manifest: global gap 1 (chr1's gap 1, dealt
+    to process 1) dropped, gap 4 (chr2's gap 1, process 0) moved into the
+    part of a process 2, which a 3-process run leaves."""
+    _, args = multichrom
+    whole, _ = manifest_runs[2][0]
+    prefix = str(tmp_path / "resumed")
+    with open(_manifest(whole)) as f:
+        lines = f.read().splitlines()
+    keys = [(e["ref"], e["gap_i"]) for e in map(json.loads, lines)]
+    drop, move = keys.index(("chr1", 1)), keys.index(("chr2", 1))
+    with open(_manifest(prefix), "w") as f:
+        f.writelines(x + "\n" for i, x in enumerate(lines)
+                     if i not in (drop, move))
+    with open(rank_part(_manifest(prefix), 2), "w") as f:
+        f.write(lines[move] + "\n")
+    assert len(load_manifest_parts(_manifest(prefix))) == 5
+    outs = run_processes(["methphase", "-o", prefix, "--engine", "torch",
+                          "--resume", *args], 2, env=ONE_THREAD)
+    _check_procs(outs, 2)
+    assert [o["gaps_decided"] for o in outs] == [0, 1]
+    assert [o["counters"]["manifest_records"] for o in outs] == [0, 1]
+    assert load_manifest(_manifest(prefix)) == load_manifest(_manifest(whole))
+    with open(_manifest(prefix), "rb") as f1, open(_manifest(whole),
+                                                    "rb") as f2:
+        assert f1.read() == f2.read()
+    assert _left_beside(prefix) == []
+    _same_files(prefix, multichrom_refs["port_torch"], (".mp.vcf", ".mp.gtf"))
+
+
+def test_manifest_parts_by_rank(tmp_path):
+    """A prefix with glob characters: the parts are found by rank (not a
+    temporary file, not another prefix's manifest), read after the
+    manifest, and removed once the merged manifest is in place."""
+    path = str(tmp_path / "o[1]*.mp.manifest.jsonl")
+    rec = {"ref": "c", "start": 0, "end": 1, "decision": 0, "tags": {}}
+    lines = {k: json.dumps(dict(rec, gap_i=k), separators=(",", ":"))
+             for k in range(4)}
+    for rank, gaps in ((10, [3]), (2, [1, 2]), (0, [2])):
+        with open(rank_part(path, rank), "w") as f:
+            f.writelines(lines[g] + "\n" for g in gaps)
+    with open(path, "w") as f:
+        f.write(lines[0] + "\n" + lines[1][:9])  # a torn last line
+    for other in (path + ".tmp7", path + ".rank1x",
+                  str(tmp_path / "o[1]*.mp.manifest.rank1.jsonl")):
+        open(other, "w").close()
+    assert [r for r, _ in rank_parts(path)] == [0, 2, 10]
+    assert sorted(load_manifest_parts(path)) == [("c", k) for k in range(4)]
+    assert write_merged(path, (lines[k] for k in range(4))) == 4
+    assert rank_parts(path) == []
+    with open(path) as f:
+        assert f.read() == "".join(lines[k] + "\n" for k in range(4))
+    assert sorted(os.listdir(tmp_path)) == sorted(
+        os.path.basename(p) for p in (path, path + ".tmp7", path + ".rank1x",
+                                      str(tmp_path / "o[1]*.mp.manifest.rank1.jsonl")))
+
+
+def test_one_process_manifest_gather_is_its_own(monkeypatch):
+    monkeypatch.delenv("POMFRET_COORDINATOR", raising=False)
+    assert td.allgather_manifest({3: "x", 1: "y"}) == {3: "x", 1: "y"}
 
 
 @pytest.mark.slow

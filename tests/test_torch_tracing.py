@@ -18,8 +18,10 @@
 - on a tiny methphase pass the counters count what they name: the
   decode's records (at least the distinct reads of the windows), the
   coverage scan's plain bytes (the BGZF blocks' ISIZE from the block the
-  header ends in to the file's end), and the benchmark's five readers of
-  them read a value;
+  header ends in to the file's end), the whole-BAM scans (one a miss of
+  the coverage cache, none a hit), and the benchmark's five readers of
+  them read a value; one process enters none of the spans and counters
+  of several processes' all-gathers and manifest merge;
 - the dispatch counters that spans replaced are gone.
 """
 import gzip
@@ -41,6 +43,7 @@ from pomfret_tpu_torch.core.readset import ChromReadSource, MmrConfig
 from pomfret_tpu_torch.io.bam import BamReader
 from pomfret_tpu_torch.kernels import engine_torch
 from pomfret_tpu_torch.parallel.batch import DISPATCH_STATS
+from pomfret_tpu_torch.pipeline import estimate_read_coverage_cached
 from pomfret_tpu_torch.utils import stats
 
 from test_torch_memory import _jobs
@@ -326,6 +329,23 @@ def test_scan_plain_bytes_are_the_blocks_after_the_header(one_pass):
         end -= isize[b]
         b += 1
     assert one_pass["counters"]["scan_plain_bytes"] == sum(isize[b:])
+
+
+def test_coverage_scans_count_the_cache_misses(one_pass, scenario, tmp_path,
+                                               monkeypatch):
+    assert one_pass["counters"]["coverage_scans"] == 1
+    assert not {"manifest_records", "manifest_records_merged"} & set(
+        one_pass["counters"])
+    assert not [k for k in one_pass["stage_s"]
+                if k.startswith("allgather_") or k == "manifest_merge"]
+    bam, _ = scenario
+    monkeypatch.setenv("POMFRET_SPOOL_DIR", str(tmp_path))
+    monkeypatch.delenv("POMFRET_NO_COV_CACHE", raising=False)
+    stats.reset_stages()
+    covs = estimate_read_coverage_cached(bam)
+    assert stats.counter_report()["coverage_scans"] == 1
+    assert estimate_read_coverage_cached(bam) == covs  # from the cache
+    assert stats.counter_report()["coverage_scans"] == 1
 
 
 def _records_by_ref(path):
