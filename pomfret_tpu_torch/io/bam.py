@@ -342,6 +342,15 @@ def chunks_before(raw, chunks, tid: int, end: int):
 # BAM reader
 # ---------------------------------------------------------------------------
 
+def scan_workers(threads: int = 1) -> int:
+    """Inflate workers of a whole-file scan (BamReader.scan_columns): the
+    cores this process may run on, over the processes of its group (whose
+    ranks share one host), and at least `threads`, the reader's (-T)."""
+    import os
+    from ..parallel.distributed import process_count
+    return max(1, len(os.sched_getaffinity(0)) // process_count(), threads)
+
+
 class BamReader:
     def __init__(self, path: str, threads: int = 1):
         self.path = path
@@ -403,20 +412,26 @@ class BamReader:
         """Stream every record in file order (the sam_itr_querys('.') path)."""
         return self._iter_from(self._data_voffset)
 
-    SCAN_CHUNK = 256 << 20  # plain bytes scan_columns inflates at a time
+    SCAN_SLOT = 2 << 20  # plain bytes a slot: what a scan worker inflates at once
 
-    def scan_columns(self, chunk_bytes: int = SCAN_CHUNK):
+    def scan_columns(self, slot_bytes: int = SCAN_SLOT,
+                     workers: Optional[int] = None):
         """Columnar whole-file scan via the C++ fast path: returns (cols,
         None), or (None, None) when unavailable. cols has rec_off/refID/
         pos/flag/mapq/l_seq/endpos/hp/de arrays, rec_off the record's
-        offset in the file's plain stream. The file is inflated and scanned
-        about `chunk_bytes` of plain data at a time, a record that crosses
-        a chunk's end carried into the next, so the scan holds one chunk
-        and the columns, not the whole plain file (which the JAX package's
-        scan inflates at once); its columns, and where it stops or gives
-        up, are those of one scan over the whole file. The blocks' plain
-        bytes it inflates add to the counter scan_plain_bytes
-        (utils.stats)."""
+        offset in the file's plain stream. `workers` threads (by default
+        scan_workers of the reader's threads) inflate slots, runs of
+        consecutive blocks of at most `slot_bytes` of plain data, into a
+        ring of reused buffers while the calling thread walks the records
+        through them in file order, a record that crosses a slot's end
+        carried across (native.bam_scan_bgzf); so the scan holds a few
+        slots and the columns, not the whole plain file (which the JAX
+        package's scan inflates at once). Its columns, and where it stops
+        or gives up, are those of one scan over the whole file. Counters
+        (utils.stats): scan_plain_bytes, the plain bytes of the blocks it
+        walks (every block from the one the header ends in); scan_workers;
+        scan_slots, the slots walked; scan_slot_waits, the times the walk
+        reached a slot not yet inflated."""
         try:
             from . import native
         except ImportError:
@@ -429,51 +444,25 @@ class BamReader:
         if table is None:
             return None, None
         offs, isize = table
-        plain0 = _np.concatenate([[0], _np.cumsum(isize)])
         v = self._data_voffset
         b = int(_np.searchsorted(offs, v >> 16))
         if b >= len(offs) or offs[b] != v >> 16:
             return None, None
-        threads = max(self._bgzf._threads, 4)
-        parts, n_rec = [], 0
-        skip = v & 0xFFFF
-        base = int(plain0[b]) + skip  # plain offset of buf[0]
-        rest = _np.zeros(0, dtype=_np.uint8)
-        while b < len(offs):
-            e = int(_np.searchsorted(plain0, plain0[b] + chunk_bytes,
-                                     side="right")) - 1
-            e = min(max(e, b + 1), len(offs))
-            # the carried record's head, then the chunk
-            buf = native.bgzf_inflate_range(comp, offs[b:e], isize[b:e],
-                                            threads, head=rest)
-            if buf is None:
-                return None, None
-            count("scan_plain_bytes", int(plain0[e] - plain0[b]))
-            buf = buf[skip:]
-            b, skip = e, 0
-            cols = native.bam_scan(buf, 0, max_rec=len(buf) // 36 + 16)
-            if cols is None:
-                return None, None
-            stop = 0
-            if len(cols["pos"]):
-                last = int(cols["rec_off"][-1])
-                stop = last + 4 + int(buf[last:last + 4].view(_np.int32)[0])
-                cols["rec_off"] += base
-                parts.append(cols)
-                n_rec += len(cols["pos"])
-            rest = buf[stop:].copy()
-            del buf
-            base += stop
-            if len(rest) >= 4 and int(rest[:4].view(_np.int32)[0]) < 32:
-                break  # a record shorter than its fixed fields ends it
+        if workers is None:
+            workers = scan_workers(self._bgzf._threads)
         # the whole-file scan's record cap (native.bam_scan's default)
-        cap = max(16, int(plain0[-1]) // 40)
-        if n_rec > cap or (n_rec == cap and len(rest) >= 4):
+        cap = max(16, int(isize.sum()) // 40)
+        got = native.bam_scan_bgzf(comp, offs[b:], isize[b:], v & 0xFFFF,
+                                   int(isize[:b].sum()), slot_bytes, workers,
+                                   cap)
+        if got is None:
             return None, None
-        if not parts:
-            return native.bam_scan(b"", 0), None  # no record: empty columns
-        return {k: _np.concatenate([p[k] for p in parts])
-                for k in parts[0]}, None
+        cols, (plain_bytes, slots, waits) = got
+        count("scan_plain_bytes", plain_bytes)
+        count("scan_workers", workers)
+        count("scan_slots", slots)
+        count("scan_slot_waits", waits)
+        return cols, None
 
     def _inflate_range(self, b0: int, slice_end: int, reuse: bool = False):
         """Inflate compressed range [b0, slice_end) with a rolling cache.

@@ -124,6 +124,14 @@ def get_lib() -> Optional[ctypes.CDLL]:
             ctypes.POINTER(ctypes.c_uint16), u8p,
             ctypes.POINTER(ctypes.c_int32), ctypes.POINTER(ctypes.c_int32),
             ctypes.POINTER(ctypes.c_int32), ctypes.POINTER(ctypes.c_float)]
+        lib.bam_scan_bgzf.restype = ctypes.c_int64
+        lib.bam_scan_bgzf.argtypes = [
+            u8p, i64p, i64p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
+            ctypes.c_int64, ctypes.c_int32, ctypes.c_int64, i64p,
+            ctypes.POINTER(ctypes.c_void_p)]
+        lib.bam_scan_bgzf_take.restype = None
+        lib.bam_scan_bgzf_take.argtypes = [
+            ctypes.c_void_p, *lib.bam_scan_records.argtypes[4:]]
         lib.rans4x8_uncompress.restype = ctypes.c_int32
         lib.rans4x8_uncompress.argtypes = [u8p, ctypes.c_int64,
                                            u8p, ctypes.c_int64]
@@ -268,34 +276,6 @@ def bgzf_block_table(comp) -> Optional[Tuple[np.ndarray, np.ndarray]]:
     return offs[:n].copy(), isize[:n].copy()
 
 
-def bgzf_inflate_range(comp, offs: np.ndarray, isize: np.ndarray,
-                       n_threads: int = 4,
-                       head: Optional[np.ndarray] = None
-                       ) -> Optional[np.ndarray]:
-    """Consecutive blocks of `comp` (rows of bgzf_block_table) inflated
-    into one new array, after a copy of `head` where given, by the native
-    thread pool."""
-    lib = get_lib()
-    if lib is None:
-        return None
-    comp_a = np.frombuffer(comp, dtype=np.uint8)
-    offs = np.ascontiguousarray(offs, dtype=np.int64)
-    isize = np.ascontiguousarray(isize, dtype=np.int64)
-    h = 0 if head is None else len(head)
-    out_offs = np.full(len(offs), h, dtype=np.int64)
-    if len(offs) > 1:
-        np.cumsum(isize[:-1], out=out_offs[1:])
-        out_offs[1:] += h
-    out = np.empty(h + int(isize.sum()), dtype=np.uint8)
-    if h:
-        out[:h] = head
-    r = lib.bgzf_inflate_blocks(_p(comp_a, ctypes.c_uint8), len(comp),
-                                _p(offs, ctypes.c_int64), _p(out_offs, ctypes.c_int64),
-                                _p(isize, ctypes.c_int64), len(offs),
-                                _p(out, ctypes.c_uint8), n_threads)
-    return None if r != 0 else out
-
-
 def bgzf_deflate_all(payload: bytes, level: int = 6, n_threads: int = 4,
                      chunk: int = 0xFF00) -> Optional[bytes]:
     """Compress a payload into BGZF blocks (no EOF marker appended)."""
@@ -356,41 +336,65 @@ def bgzf_deflate_all_chunks(payload: bytes, lens, level: int = 6,
     return b"".join(parts), [int(x) for x in out_lens]
 
 
-def bam_scan(buf: bytes, start: int,
-             max_rec: Optional[int] = None) -> Optional[dict]:
+# the columns of a record scan, in the order of bam_scan_records' arrays
+_SCAN_COLUMNS = (
+    ("rec_off", np.int64), ("refID", np.int32), ("pos", np.int32),
+    ("flag", np.uint16), ("mapq", np.uint8), ("l_seq", np.int32),
+    ("endpos", np.int32), ("hp", np.int32), ("de", np.float32))
+
+
+def _scan_arrays(n: int):
+    """Empty scan columns of n records, and their pointers in argument
+    order."""
+    cols = {k: np.empty(n, dtype=dt) for k, dt in _SCAN_COLUMNS}
+    return cols, [_p(cols[k], np.ctypeslib.as_ctypes_type(dt))
+                  for k, dt in _SCAN_COLUMNS]
+
+
+def bam_scan(buf: bytes, start: int) -> Optional[dict]:
     """Columnar scan of all records from `start`; returns dict of arrays,
-    or None past `max_rec` records (by default one per 40 bytes)."""
+    or None past one record per 40 bytes."""
     lib = get_lib()
     if lib is None:
         return None
     b = np.frombuffer(buf, dtype=np.uint8)
-    if max_rec is None:
-        max_rec = max(16, len(buf) // 40)
-    rec_off = np.zeros(max_rec, dtype=np.int64)
-    refID = np.zeros(max_rec, dtype=np.int32)
-    pos = np.zeros(max_rec, dtype=np.int32)
-    flag = np.zeros(max_rec, dtype=np.uint16)
-    mapq = np.zeros(max_rec, dtype=np.uint8)
-    l_seq = np.zeros(max_rec, dtype=np.int32)
-    endpos = np.zeros(max_rec, dtype=np.int32)
-    hp = np.zeros(max_rec, dtype=np.int32)
-    de = np.zeros(max_rec, dtype=np.float32)
-    n = lib.bam_scan_records(
-        _p(b, ctypes.c_uint8), len(buf), start, max_rec,
-        _p(rec_off, ctypes.c_int64), _p(refID, ctypes.c_int32),
-        _p(pos, ctypes.c_int32), _p(flag, ctypes.c_uint16),
-        _p(mapq, ctypes.c_uint8), _p(l_seq, ctypes.c_int32),
-        _p(endpos, ctypes.c_int32), _p(hp, ctypes.c_int32),
-        _p(de, ctypes.c_float))
+    max_rec = max(16, len(buf) // 40)
+    cols, ptrs = _scan_arrays(max_rec)
+    n = lib.bam_scan_records(_p(b, ctypes.c_uint8), len(buf), start, max_rec,
+                             *ptrs)
     if n < 0:
         return None
-    sl = slice(0, n)
-    return {
-        "rec_off": rec_off[sl].copy(), "refID": refID[sl].copy(),
-        "pos": pos[sl].copy(), "flag": flag[sl].copy(),
-        "mapq": mapq[sl].copy(), "l_seq": l_seq[sl].copy(),
-        "endpos": endpos[sl].copy(), "hp": hp[sl].copy(), "de": de[sl].copy(),
-    }
+    return {k: v[:n].copy() for k, v in cols.items()}
+
+
+def bam_scan_bgzf(comp, offs: np.ndarray, isize: np.ndarray, skip: int,
+                  plain_base: int, slot_bytes: int, n_workers: int,
+                  max_rec: int):
+    """bam_scan over the plain bytes of consecutive BGZF blocks of `comp`
+    (rows of bgzf_block_table, the first at plain_base in the file's plain
+    stream), from `skip` bytes into the first, inflated and walked as one
+    pipeline (pomfret_native.cpp bam_scan_bgzf): n_workers threads inflate
+    slots of at most slot_bytes into reused buffers while this thread's
+    call walks them. Returns (columns, (plain bytes of the slots walked,
+    slots walked, the walk's waits for a slot)), or None where a slot the
+    walk reaches does not inflate or a record starts past max_rec."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    comp_a = np.frombuffer(comp, dtype=np.uint8)
+    offs = np.ascontiguousarray(offs, dtype=np.int64)
+    isize = np.ascontiguousarray(isize, dtype=np.int64)
+    info = np.zeros(3, dtype=np.int64)
+    rows = ctypes.c_void_p()
+    n = lib.bam_scan_bgzf(_p(comp_a, ctypes.c_uint8), _p(offs, ctypes.c_int64),
+                          _p(isize, ctypes.c_int64), len(offs), skip,
+                          plain_base, slot_bytes, n_workers, max_rec,
+                          _p(info, ctypes.c_int64), ctypes.byref(rows))
+    if n < 0:
+        return None
+    cols, ptrs = _scan_arrays(n)
+    lib.bam_scan_bgzf_take(rows, *ptrs)
+    return cols, tuple(int(x) for x in info)
 
 
 def rans4x8_uncompress(stream: bytes, raw_size: int) -> Optional[bytes]:

@@ -16,6 +16,10 @@
 #include <vector>
 #include <thread>
 #include <atomic>
+#include <climits>
+#include <condition_variable>
+#include <memory>
+#include <mutex>
 #include <zlib.h>
 #ifdef USE_LIBDEFLATE
 // htslib's own speedup: libdeflate decodes raw-DEFLATE BGZF payloads
@@ -67,6 +71,71 @@ int64_t bgzf_scan_blocks(const uint8_t* comp, int64_t comp_len,
     return n;
 }
 
+namespace {
+
+// One thread's BGZF payload decoder: a libdeflate decompressor reused for
+// every block it inflates, or nothing where zlib sets up a stream a block.
+struct Inflater {
+#ifdef USE_LIBDEFLATE
+    struct libdeflate_decompressor* dec = libdeflate_alloc_decompressor();
+    ~Inflater() { if (dec) libdeflate_free_decompressor(dec); }
+    bool ok() const { return dec != nullptr; }
+#else
+    bool ok() const { return true; }
+#endif
+};
+
+// Inflate the BGZF block at comp + off into out[0, isize). Returns 0, or 1
+// where its header has no BC field, 2 where zlib cannot start, 3 where the
+// payload does not inflate to exactly isize bytes.
+int32_t inflate_block(Inflater& inf, const uint8_t* comp, int64_t off,
+                      uint8_t* out, int64_t isize) {
+    uint16_t xlen;
+    memcpy(&xlen, comp + off + 10, 2);
+    int64_t data_start = off + 12 + xlen;
+    int64_t xoff = off + 12, bsize = -1;
+    while (xoff + 4 <= data_start) {
+        uint8_t si1 = comp[xoff], si2 = comp[xoff + 1];
+        uint16_t slen;
+        memcpy(&slen, comp + xoff + 2, 2);
+        if (si1 == 0x42 && si2 == 0x43 && slen == 2) {
+            uint16_t bs;
+            memcpy(&bs, comp + xoff + 4, 2);
+            bsize = (int64_t)bs + 1;
+        }
+        xoff += 4 + slen;
+    }
+    if (bsize < 0) return 1;
+    const uint8_t* data = comp + data_start;
+    size_t data_len = (size_t)(off + bsize - 8 - data_start);
+#ifdef USE_LIBDEFLATE
+    size_t actual = 0;
+    enum libdeflate_result r = libdeflate_deflate_decompress(
+        inf.dec, data, data_len, out, (size_t)isize, &actual);
+    if (!((r == LIBDEFLATE_SUCCESS && actual == (size_t)isize) ||
+          (isize == 0 &&
+           (r == LIBDEFLATE_SUCCESS || r == LIBDEFLATE_INSUFFICIENT_SPACE))))
+        return 3;
+#else
+    (void)inf;
+    z_stream zs;
+    memset(&zs, 0, sizeof(zs));
+    zs.next_in = const_cast<uint8_t*>(data);
+    zs.avail_in = (uInt)data_len;
+    zs.next_out = out;
+    zs.avail_out = (uInt)isize;
+    if (inflateInit2(&zs, -15) != Z_OK) return 2;
+    int r = inflate(&zs, Z_FINISH);
+    inflateEnd(&zs);
+    if (r != Z_STREAM_END && !(r == Z_OK && isize == 0) &&
+        !(r == Z_BUF_ERROR && isize == 0))
+        return 3;
+#endif
+    return 0;
+}
+
+}  // namespace
+
 // Inflate all blocks (offs from bgzf_scan_blocks) into out at out_offs.
 // Returns 0 on success.
 int32_t bgzf_inflate_blocks(const uint8_t* comp, int64_t comp_len,
@@ -76,65 +145,15 @@ int32_t bgzf_inflate_blocks(const uint8_t* comp, int64_t comp_len,
     std::atomic<int64_t> next(0);
     std::atomic<int32_t> err(0);
     auto worker = [&]() {
-#ifdef USE_LIBDEFLATE
-        struct libdeflate_decompressor* dec = libdeflate_alloc_decompressor();
-        if (!dec) { err.store(2); return; }
-#endif
+        Inflater inf;
+        if (!inf.ok()) { err.store(2); return; }
         for (;;) {
             int64_t i = next.fetch_add(1);
             if (i >= n_blocks || err.load()) break;
-            int64_t off = offs[i];
-            uint16_t xlen;
-            memcpy(&xlen, comp + off + 10, 2);
-            int64_t data_start = off + 12 + xlen;
-            // find bsize again (cheap)
-            int64_t xoff = off + 12, xend = data_start, bsize = -1;
-            while (xoff + 4 <= xend) {
-                uint8_t si1 = comp[xoff], si2 = comp[xoff + 1];
-                uint16_t slen;
-                memcpy(&slen, comp + xoff + 2, 2);
-                if (si1 == 0x42 && si2 == 0x43 && slen == 2) {
-                    uint16_t bs;
-                    memcpy(&bs, comp + xoff + 4, 2);
-                    bsize = (int64_t)bs + 1;
-                }
-                xoff += 4 + slen;
-            }
-            if (bsize < 0) { err.store(1); break; }
-            const uint8_t* data = comp + data_start;
-            size_t data_len = (size_t)(off + bsize - 8 - data_start);
-#ifdef USE_LIBDEFLATE
-            size_t actual = 0;
-            enum libdeflate_result r = libdeflate_deflate_decompress(
-                dec, data, data_len, out + out_offs[i], (size_t)isize[i],
-                &actual);
-            if (!((r == LIBDEFLATE_SUCCESS && actual == (size_t)isize[i]) ||
-                  (isize[i] == 0 &&
-                   (r == LIBDEFLATE_SUCCESS ||
-                    r == LIBDEFLATE_INSUFFICIENT_SPACE)))) {
-                err.store(3);
-                break;
-            }
-#else
-            z_stream zs;
-            memset(&zs, 0, sizeof(zs));
-            zs.next_in = const_cast<uint8_t*>(data);
-            zs.avail_in = (uInt)data_len;
-            zs.next_out = out + out_offs[i];
-            zs.avail_out = (uInt)isize[i];
-            if (inflateInit2(&zs, -15) != Z_OK) { err.store(2); break; }
-            int r = inflate(&zs, Z_FINISH);
-            inflateEnd(&zs);
-            if (r != Z_STREAM_END && !(r == Z_OK && isize[i] == 0) &&
-                !(r == Z_BUF_ERROR && isize[i] == 0)) {
-                err.store(3);
-                break;
-            }
-#endif
+            int32_t e = inflate_block(inf, comp, offs[i], out + out_offs[i],
+                                      isize[i]);
+            if (e) { err.store(e); break; }
         }
-#ifdef USE_LIBDEFLATE
-        libdeflate_free_decompressor(dec);
-#endif
     };
     if (n_threads <= 1) {
         worker();
@@ -205,6 +224,100 @@ int32_t bgzf_deflate_blocks(const uint8_t* payload,
 // BAM record scan
 // ---------------------------------------------------------------------------
 
+namespace {
+
+// The columns of one record.
+struct ScanRow {
+    int64_t rec_off;
+    int32_t refID, pos, l_seq, endpos, hp;
+    float de;
+    uint16_t flag;
+    uint8_t mapq;
+};
+
+// The columns of the record whose block_size bytes, after its block_size
+// field, start at p: its fixed fields, its end from its CIGAR, its HP aux
+// tag (int, -1 when absent) and its de aux tag (float, -1 when absent).
+// rec_off is left to the caller.
+void scan_record(const uint8_t* p, int32_t block_size, ScanRow& r) {
+    int32_t rid, ps, lseq;
+    memcpy(&rid, p, 4);
+    memcpy(&ps, p + 4, 4);
+    uint8_t l_read_name = p[8];
+    uint8_t mq = p[9];
+    uint16_t n_cigar, fl;
+    memcpy(&n_cigar, p + 12, 2);
+    memcpy(&fl, p + 14, 2);
+    memcpy(&lseq, p + 16, 4);
+    // endpos from cigar
+    const uint8_t* cg = p + 32 + l_read_name;
+    int64_t span = 0;
+    for (int i = 0; i < n_cigar; i++) {
+        uint32_t c;
+        memcpy(&c, cg + 4 * i, 4);
+        uint32_t op = c & 0xf, ln = c >> 4;
+        // M, D, N, =, X consume reference
+        if (op == 0 || op == 2 || op == 3 || op == 7 || op == 8) span += ln;
+    }
+    int32_t ep = ps + (int32_t)(span > 0 ? span : 1);
+    // aux scan for HP / de
+    const uint8_t* aux = cg + 4 * n_cigar + (lseq + 1) / 2 + lseq;
+    const uint8_t* aux_end = p + block_size;
+    int32_t hpv = -1;
+    float dev = -1.0f;
+    while (aux + 3 <= aux_end) {
+        char t0 = (char)aux[0], t1 = (char)aux[1], typ = (char)aux[2];
+        const uint8_t* v = aux + 3;
+        int64_t sz;
+        switch (typ) {
+            case 'A': case 'c': case 'C': sz = 1; break;
+            case 's': case 'S': sz = 2; break;
+            case 'i': case 'I': case 'f': sz = 4; break;
+            case 'Z': case 'H': {
+                const uint8_t* q = v;
+                while (q < aux_end && *q) q++;
+                sz = q - v + 1;
+                break;
+            }
+            case 'B': {
+                if (v + 5 > aux_end) { aux = aux_end; sz = 0; break; }
+                char sub = (char)v[0];
+                int32_t cnt;
+                memcpy(&cnt, v + 1, 4);
+                int es = (sub == 'c' || sub == 'C') ? 1
+                       : (sub == 's' || sub == 'S') ? 2 : 4;
+                sz = 5 + (int64_t)cnt * es;
+                break;
+            }
+            default: aux = aux_end; sz = 0; break;
+        }
+        if (aux >= aux_end) break;
+        if (t0 == 'H' && t1 == 'P') {
+            switch (typ) {
+                case 'c': hpv = *(const int8_t*)v; break;
+                case 'C': hpv = *v; break;
+                case 's': { int16_t x; memcpy(&x, v, 2); hpv = x; break; }
+                case 'S': { uint16_t x; memcpy(&x, v, 2); hpv = x; break; }
+                case 'i': case 'I': { int32_t x; memcpy(&x, v, 4); hpv = x; break; }
+                default: break;
+            }
+        } else if (t0 == 'd' && t1 == 'e' && typ == 'f') {
+            memcpy(&dev, v, 4);
+        }
+        aux = v + sz;
+    }
+    r.refID = rid;
+    r.pos = ps;
+    r.flag = fl;
+    r.mapq = mq;
+    r.l_seq = lseq;
+    r.endpos = ep;
+    r.hp = hpv;
+    r.de = dev;
+}
+
+}  // namespace
+
 // Scan decoded BAM records starting at `start` in `buf`. Produces columnar
 // arrays + per-record byte offsets, plus the HP aux tag (int, -1 when
 // absent) and the de aux tag (float, -1 when absent).
@@ -220,86 +333,246 @@ int64_t bam_scan_records(const uint8_t* buf, int64_t len, int64_t start,
         int32_t block_size;
         memcpy(&block_size, buf + off, 4);
         if (off + 4 + block_size > len || block_size < 32) break;
-        const uint8_t* p = buf + off + 4;
-        int32_t rid, ps, lseq;
-        memcpy(&rid, p, 4);
-        memcpy(&ps, p + 4, 4);
-        uint8_t l_read_name = p[8];
-        uint8_t mq = p[9];
-        uint16_t n_cigar, fl;
-        memcpy(&n_cigar, p + 12, 2);
-        memcpy(&fl, p + 14, 2);
-        memcpy(&lseq, p + 16, 4);
-        // endpos from cigar
-        const uint8_t* cg = p + 32 + l_read_name;
-        int64_t span = 0;
-        for (int i = 0; i < n_cigar; i++) {
-            uint32_t c;
-            memcpy(&c, cg + 4 * i, 4);
-            uint32_t op = c & 0xf, ln = c >> 4;
-            // M, D, N, =, X consume reference
-            if (op == 0 || op == 2 || op == 3 || op == 7 || op == 8) span += ln;
-        }
-        int32_t ep = ps + (int32_t)(span > 0 ? span : 1);
-        // aux scan for HP / de
-        const uint8_t* aux = cg + 4 * n_cigar + (lseq + 1) / 2 + lseq;
-        const uint8_t* aux_end = buf + off + 4 + block_size;
-        int32_t hpv = -1;
-        float dev = -1.0f;
-        while (aux + 3 <= aux_end) {
-            char t0 = (char)aux[0], t1 = (char)aux[1], typ = (char)aux[2];
-            const uint8_t* v = aux + 3;
-            int64_t sz;
-            switch (typ) {
-                case 'A': case 'c': case 'C': sz = 1; break;
-                case 's': case 'S': sz = 2; break;
-                case 'i': case 'I': case 'f': sz = 4; break;
-                case 'Z': case 'H': {
-                    const uint8_t* q = v;
-                    while (q < aux_end && *q) q++;
-                    sz = q - v + 1;
-                    break;
-                }
-                case 'B': {
-                    if (v + 5 > aux_end) { aux = aux_end; sz = 0; break; }
-                    char sub = (char)v[0];
-                    int32_t cnt;
-                    memcpy(&cnt, v + 1, 4);
-                    int es = (sub == 'c' || sub == 'C') ? 1
-                           : (sub == 's' || sub == 'S') ? 2 : 4;
-                    sz = 5 + (int64_t)cnt * es;
-                    break;
-                }
-                default: aux = aux_end; sz = 0; break;
-            }
-            if (aux >= aux_end) break;
-            if (t0 == 'H' && t1 == 'P') {
-                switch (typ) {
-                    case 'c': hpv = *(const int8_t*)v; break;
-                    case 'C': hpv = *v; break;
-                    case 's': { int16_t x; memcpy(&x, v, 2); hpv = x; break; }
-                    case 'S': { uint16_t x; memcpy(&x, v, 2); hpv = x; break; }
-                    case 'i': case 'I': { int32_t x; memcpy(&x, v, 4); hpv = x; break; }
-                    default: break;
-                }
-            } else if (t0 == 'd' && t1 == 'e' && typ == 'f') {
-                memcpy(&dev, v, 4);
-            }
-            aux = v + sz;
-        }
+        ScanRow r;
+        scan_record(buf + off + 4, block_size, r);
         rec_off[n] = off;
-        refID[n] = rid;
-        pos[n] = ps;
-        flag[n] = fl;
-        mapq[n] = mq;
-        l_seq[n] = lseq;
-        endpos[n] = ep;
-        hp[n] = hpv;
-        de[n] = dev;
+        refID[n] = r.refID;
+        pos[n] = r.pos;
+        flag[n] = r.flag;
+        mapq[n] = r.mapq;
+        l_seq[n] = r.l_seq;
+        endpos[n] = r.endpos;
+        hp[n] = r.hp;
+        de[n] = r.de;
         n++;
         off += 4 + block_size;
     }
     return n;
+}
+
+namespace {
+
+// One bam_scan_bgzf call's pool. Slot s, the blocks [first[s], first[s+1]),
+// is inflated by a worker into ring buffer s % R once the walker has
+// released slot s - R; the walker takes the slots in order.
+struct SlotRing {
+    const uint8_t* comp;
+    const int64_t* offs;
+    const int64_t* isize;
+    std::vector<int64_t> first;  // each slot's first block, then n_blocks
+    std::vector<int64_t> plain;  // each block's plain offset, then the total
+    int64_t n_slots = 0, cap = 0, R = 0;
+    std::unique_ptr<uint8_t[]> arena;  // R buffers of cap bytes
+    std::atomic<int64_t> next{0};      // the next slot a worker claims
+    std::mutex mu;
+    std::condition_variable inflated, freed;
+    std::vector<int64_t> ready;        // a buffer a slot: the slot inflated there
+    int64_t released = 0;              // slots below it are walked
+    int64_t failed = INT64_MAX;        // the first slot that did not inflate
+    int64_t waits = 0;                 // the walker's waits for a slot
+    bool stop = false;
+
+    uint8_t* buf(int64_t s) { return arena.get() + (s % R) * cap; }
+    int64_t len(int64_t s) const { return plain[first[s + 1]] - plain[first[s]]; }
+
+    void work() {
+        Inflater inf;
+        for (;;) {
+            int64_t s = next.fetch_add(1);
+            if (s >= n_slots) return;
+            {
+                std::unique_lock<std::mutex> lk(mu);
+                freed.wait(lk, [&] { return stop || s < released + R; });
+                if (stop) return;
+            }
+            bool ok = inf.ok();
+            uint8_t* out = buf(s);
+            for (int64_t b = first[s]; ok && b < first[s + 1]; b++)
+                ok = inflate_block(inf, comp, offs[b],
+                                   out + plain[b] - plain[first[s]],
+                                   isize[b]) == 0;
+            {
+                std::lock_guard<std::mutex> lk(mu);
+                if (ok) ready[s % R] = s;
+                else failed = std::min(failed, s);
+            }
+            inflated.notify_one();  // only the walker waits on it
+        }
+    }
+
+    // Slot s's bytes once inflated, or nullptr where it failed.
+    const uint8_t* acquire(int64_t s) {
+        std::unique_lock<std::mutex> lk(mu);
+        auto done = [&] { return ready[s % R] == s || failed <= s; };
+        if (!done()) {
+            waits++;
+            inflated.wait(lk, done);
+        }
+        return ready[s % R] == s ? buf(s) : nullptr;
+    }
+
+    void release(int64_t s) {
+        {
+            std::lock_guard<std::mutex> lk(mu);
+            released = s + 1;
+        }
+        freed.notify_all();
+    }
+
+    void finish() {
+        {
+            std::lock_guard<std::mutex> lk(mu);
+            stop = true;
+        }
+        freed.notify_all();
+    }
+};
+
+// The walker's place in the slots.
+struct SlotCursor {
+    SlotRing& g;
+    int64_t s = -1;               // the slot it is in
+    const uint8_t* p = nullptr;   // its next byte
+    int64_t left = 0;             // bytes of the slot after p
+    int64_t walked = 0, walked_bytes = 0;
+    std::vector<uint8_t> carry;   // bytes that cross a slot's end
+
+    explicit SlotCursor(SlotRing& ring) : g(ring) {}
+
+    // Release this slot and move to the next; false where there is none or
+    // it did not inflate.
+    bool advance() {
+        if (s >= 0) g.release(s);
+        if (++s >= g.n_slots) return false;
+        p = g.acquire(s);
+        if (!p) return false;
+        left = g.len(s);
+        walked++;
+        walked_bytes += left;
+        return true;
+    }
+
+    // The next n bytes, contiguous: in place where one slot holds them,
+    // else copied into carry, which grows to any record's length.
+    const uint8_t* take(int64_t n) {
+        if (n <= left) {
+            const uint8_t* r = p;
+            p += n;
+            left -= n;
+            return r;
+        }
+        if ((int64_t)carry.size() < n) carry.resize(n);
+        int64_t got = 0;
+        for (;;) {
+            int64_t k = std::min(left, n - got);
+            if (k) memcpy(carry.data() + got, p, k);
+            got += k;
+            p += k;
+            left -= k;
+            if (got == n) return carry.data();
+            if (!advance()) return nullptr;
+        }
+    }
+};
+
+}  // namespace
+
+// The records of a whole BAM file, as bam_scan_records walks them in its
+// plain bytes, from the BGZF blocks (rows of bgzf_scan_blocks, the first
+// the one the records start in, `skip` bytes into it, at plain_base in the
+// file's plain stream, in which rec_off counts). n_workers threads inflate
+// slots, runs of consecutive blocks of at most slot_bytes of plain data (a
+// block at least), into a ring of 2 x n_workers buffers, each reused for
+// the whole file, while the calling thread walks the records through the
+// slots in file order and releases each slot once past it. The walk ends
+// at a record shorter than its 32 fixed bytes, or at the file's end, after
+// taking the slots left. Returns the record count and, in *rows, the
+// columns for bam_scan_bgzf_take; -1 where a slot the walk reaches does
+// not inflate, -2 where a record starts past max_records. info gets the
+// walked slots' plain bytes, their number and the walker's waits for one.
+int64_t bam_scan_bgzf(const uint8_t* comp, const int64_t* offs,
+                      const int64_t* isize, int64_t n_blocks, int64_t skip,
+                      int64_t plain_base, int64_t slot_bytes,
+                      int32_t n_workers, int64_t max_records, int64_t* info,
+                      void** rows) {
+    SlotRing g;
+    g.comp = comp;
+    g.offs = offs;
+    g.isize = isize;
+    g.plain.assign(n_blocks + 1, 0);
+    for (int64_t b = 0; b < n_blocks; b++) g.plain[b + 1] = g.plain[b] + isize[b];
+    for (int64_t b = 0; b < n_blocks;) {
+        int64_t e = b + 1;
+        while (e < n_blocks && g.plain[e + 1] - g.plain[b] <= slot_bytes) e++;
+        g.first.push_back(b);
+        g.cap = std::max(g.cap, g.plain[e] - g.plain[b]);
+        b = e;
+    }
+    g.first.push_back(n_blocks);
+    g.n_slots = (int64_t)g.first.size() - 1;
+    int64_t W = std::max<int64_t>(1, std::min<int64_t>(n_workers, g.n_slots));
+    g.R = std::min<int64_t>(2 * W, std::max<int64_t>(g.n_slots, 1));
+    g.arena.reset(new uint8_t[std::max<int64_t>(g.R * g.cap, 1)]);
+    g.ready.assign(g.R, -1);
+    std::vector<std::thread> pool;
+    for (int64_t t = 0; t < W; t++) pool.emplace_back(&SlotRing::work, &g);
+
+    SlotCursor c(g);
+    auto* out = new std::vector<ScanRow>();
+    const int64_t total = plain_base + g.plain[n_blocks];
+    int64_t off = plain_base + skip, rc = 0;
+    bool to_end = true;  // whether the walk takes the slots left
+    if (skip > g.plain[n_blocks] || (skip && !c.take(skip))) rc = -1;
+    while (rc == 0 && off + 4 <= total) {
+        if ((int64_t)out->size() >= max_records) { rc = -2; break; }
+        const uint8_t* h = c.take(4);
+        if (!h) { rc = -1; break; }
+        int32_t block_size;
+        memcpy(&block_size, h, 4);
+        if (block_size < 32) { to_end = false; break; }
+        if (off + 4 + block_size > total) break;
+        const uint8_t* body = c.take(block_size);
+        if (!body) { rc = -1; break; }
+        ScanRow r;
+        scan_record(body, block_size, r);
+        r.rec_off = off;
+        out->push_back(r);
+        off += 4 + block_size;
+    }
+    while (rc == 0 && to_end && c.s + 1 < g.n_slots)
+        if (!c.advance()) rc = -1;
+    g.finish();
+    for (auto& t : pool) t.join();
+    info[0] = c.walked_bytes;
+    info[1] = c.walked;
+    info[2] = g.waits;
+    if (rc < 0) {
+        delete out;
+        return rc;
+    }
+    *rows = out;
+    return (int64_t)out->size();
+}
+
+// Copy the columns bam_scan_bgzf returned into the arrays and free them.
+void bam_scan_bgzf_take(void* rows, int64_t* rec_off, int32_t* refID,
+                        int32_t* pos, uint16_t* flag, uint8_t* mapq,
+                        int32_t* l_seq, int32_t* endpos, int32_t* hp,
+                        float* de) {
+    auto* in = static_cast<std::vector<ScanRow>*>(rows);
+    for (size_t i = 0; i < in->size(); i++) {
+        const ScanRow& r = (*in)[i];
+        rec_off[i] = r.rec_off;
+        refID[i] = r.refID;
+        pos[i] = r.pos;
+        flag[i] = r.flag;
+        mapq[i] = r.mapq;
+        l_seq[i] = r.l_seq;
+        endpos[i] = r.endpos;
+        hp[i] = r.hp;
+        de[i] = r.de;
+    }
+    delete in;
 }
 
 // ------------------------------------------------------------ meth decode

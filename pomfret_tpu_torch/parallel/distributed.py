@@ -24,6 +24,7 @@ _merge_packed_tag_maps) are copies of the JAX package's.
 from __future__ import annotations
 
 import os
+import sys
 import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -37,8 +38,10 @@ DIST_STATS = {"allgather_s": 0.0, "allgather_bytes": 0, "n_allgathers": 0}
 
 
 def _group_up() -> bool:
-    import torch.distributed as dist
-    return dist.is_available() and dist.is_initialized()
+    # no group is up where torch.distributed was never imported: asking
+    # does not import torch
+    dist = sys.modules.get("torch.distributed")
+    return dist is not None and dist.is_available() and dist.is_initialized()
 
 
 def initialize(coordinator: Optional[str] = None,

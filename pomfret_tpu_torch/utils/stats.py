@@ -62,9 +62,12 @@ STAGE_EVENTS: Optional[List[Span]] = None
 # they inflate (source_records, source_plain_bytes), the BAI chunks past
 # the region that each BAM region fetch drops unread (source_chunks_pruned,
 # io/bam.py fetch_window_columnar), the plain bytes the coverage scan
-# inflates (scan_plain_bytes) and the whole-BAM scans run (coverage_scans:
-# pipeline.estimate_read_coverage_cached's misses); with several processes,
-# the manifest records a process writes to its part (manifest_records) and
+# inflates (scan_plain_bytes), its inflate workers, the slots it walks and
+# its waits for a slot not yet inflated (scan_workers, scan_slots,
+# scan_slot_waits: io/bam.py scan_columns), the whole-BAM scans run
+# (coverage_scans: pipeline.estimate_read_coverage_cached's misses); with
+# several processes, the manifest records a process writes to its part
+# (manifest_records) and
 # those process 0 writes to the merged manifest (manifest_records_merged,
 # pipeline._merge_manifest); count() adds under a
 # lock, since the decode runs on the loader thread and its pipe worker

@@ -4,9 +4,13 @@
   decode starts, and keeps at most POMFRET_PREFETCH + POMFRET_PIPE_DEPTH
   + 1 groups alive at once (DISPATCH_STATS groups_in_flight_max); its
   outputs are held by tests/test_torch_pipeline.py and the parity suite;
-- BamReader.scan_columns, which inflates and scans a chunk at a time, gives
-  the columns of the JAX package's whole-file scan (exact, rec_off
-  included) at any chunk size, records crossing every chunk's end;
+- BamReader.scan_columns, whose workers inflate slots of blocks into
+  reused buffers while one walker scans them, gives the columns of the
+  JAX package's whole-file scan (exact, rec_off included) at any slot
+  size and number of workers, records crossing every slot's end, a record
+  longer than two blocks too; it stops and gives up where that scan
+  does: at a file cut inside a record, at a record shorter than its
+  fixed fields, past the record cap;
 - the memory timeline (testing.RssTimeline, memory_by_stage) puts each
   read of the resident set under the stages open at its time;
 - on the card (marker `cuda`): uploads of the five scale-5 batch shapes in
@@ -14,6 +18,7 @@
   arrives whole while the next is staged.
 """
 import mmap
+import struct
 import threading
 import weakref
 
@@ -25,9 +30,13 @@ from pomfret_tpu_torch import testing
 from pomfret_tpu_torch.core.intervals import (Storage, merge_close_intervals,
                                               store_raw_intervals)
 from pomfret_tpu_torch.core.readset import READBACK, MmrConfig
+from pomfret_tpu_torch.io import native
 from pomfret_tpu_torch.io.bam import BamReader
+from pomfret_tpu_torch.io.bam_writer import encode_record
+from pomfret_tpu_torch.io.bgzf import BGZF_EOF, BgzfWriter
 from pomfret_tpu_torch.io.intervals_loader import (IS_VCF,
                                                    load_intervals_from_file)
+from pomfret_tpu_torch.io.records import make_record
 from pomfret_tpu_torch.kernels import engine_torch
 from pomfret_tpu_torch.parallel import batch as tb
 from pomfret_tpu_torch.parallel.batch import DISPATCH_STATS
@@ -119,21 +128,99 @@ def test_groups_in_flight_bounded(pipelined):
         [0, 0, 0], [0, 0, 0]]
 
 
-@pytest.mark.parametrize("chunk", [1 << 12, 50_000, 1 << 20,
-                                   BamReader.SCAN_CHUNK])
-def test_scan_columns_chunked_equals_whole(scenario, chunk):
+def _same_columns(got, ref):
+    assert set(got) == set(ref)
+    for k in ref:
+        assert got[k].dtype == ref[k].dtype, k
+        np.testing.assert_array_equal(got[k], ref[k], err_msg=k)
+
+
+def _jax_scan(bam):
+    """The JAX package's whole-file scan of `bam`: its columns, or None."""
     from pomfret_tpu.io.bam import BamReader as JBam
     # here, not as the module is imported: the card runs the module's card
     # test, and the JAX package is not built there
     torch_jax_native.ready()
+    return JBam(bam).scan_columns()[0]
+
+
+# a slot of 1 byte is one block
+@pytest.mark.parametrize("workers", [1, 2, 8])
+@pytest.mark.parametrize("slot", [1, 50_000, 1 << 20, BamReader.SCAN_SLOT])
+def test_scan_columns_chunked_equals_whole(scenario, slot, workers):
     bam, _ = scenario
-    ref, _ = JBam(bam).scan_columns()
-    got, buf = BamReader(bam).scan_columns(chunk_bytes=chunk)
+    ref = _jax_scan(bam)
+    got, buf = BamReader(bam).scan_columns(slot_bytes=slot, workers=workers)
     assert buf is None
-    assert set(got) == set(ref) and len(ref["pos"]) > 300
-    for k in ref:
-        assert got[k].dtype == ref[k].dtype, k
-        np.testing.assert_array_equal(got[k], ref[k], err_msg=k)
+    assert len(ref["pos"]) > 300
+    _same_columns(got, ref)
+
+
+@pytest.fixture(scope="module")
+def long_reads(tmp_path_factory):
+    """A BAM of 100 kb reads, each record longer than two BGZF blocks."""
+    cfg = testing.SynthConfig(ref_len=330_000, read_len=100_000,
+                              read_stagger=100_000)
+    region = testing.SynthRegion(cfg)
+    bam = str(tmp_path_factory.mktemp("long_reads") / "long.bam")
+    region.write_bam(bam, region.make_reads())
+    return bam
+
+
+@pytest.mark.parametrize("workers", [1, 8])
+def test_scan_columns_carries_long_records_across_slots(long_reads, workers):
+    ref = _jax_scan(long_reads)
+    # with one-block slots each record crosses two slot ends or more
+    assert min(np.diff(ref["rec_off"])) > 2 * BgzfWriter.BLOCK
+    got, _ = BamReader(long_reads).scan_columns(slot_bytes=1, workers=workers)
+    _same_columns(got, ref)
+
+
+def _raw_bam(path, records: bytes) -> str:
+    """A BAM of one reference whose plain bytes are its header and then
+    `records`, in BGZF blocks of 7,000 plain bytes: the header ends inside
+    the first block, and records cross the blocks' ends."""
+    name = b"chr1\0"
+    hdr = (b"BAM\1" + struct.pack("<ii", 0, 1) + struct.pack("<i", len(name))
+           + name + struct.pack("<i", 1_000_000))
+    with open(path, "wb") as f:
+        f.write(native.bgzf_deflate_all(hdr + records, chunk=7_000))
+        f.write(BGZF_EOF)
+    return str(path)
+
+
+def _read(i: int) -> bytes:
+    return encode_record(make_record(
+        f"r{i}", 0, 100 * i, "ACGT" * 90, [("M", 360)],
+        tags=[("HP", "i", 1 + i % 2), ("de", "f", 0.01 * (i % 7))]))
+
+
+# the record of 37 bytes, under the cap's 40 a record
+_TINY = struct.pack("<iiiBBHHHiiii", 33, 0, 7, 1, 60, 0, 0, 0, 0, -1, -1,
+                    0) + b"\0"
+FALLBACKS = {
+    # cut inside its last record: the records before it
+    "cut": b"".join(_read(i) for i in range(300))[:-150],
+    # a record of 20 bytes, shorter than its fixed fields, ends the scan
+    "short": (b"".join(_read(i) for i in range(100)) + struct.pack("<i", 20)
+              + bytes(20) + b"".join(_read(i) for i in range(100, 200))),
+    # 1,000 records in 37,025 plain bytes, past the cap of 925: no columns
+    "cap": _TINY * 1000,
+}
+
+
+@pytest.mark.parametrize("slot", [1, BamReader.SCAN_SLOT])
+@pytest.mark.parametrize("case", sorted(FALLBACKS))
+def test_scan_columns_stops_and_gives_up_as_the_whole_file_scan(
+        tmp_path, case, slot):
+    bam = _raw_bam(tmp_path / f"{case}.bam", FALLBACKS[case])
+    ref = _jax_scan(bam)
+    got, _ = BamReader(bam).scan_columns(slot_bytes=slot, workers=2)
+    if case == "cap":
+        assert ref is None and got is None
+        return
+    assert len(ref["pos"]) == {"cut": 299, "short": 100}[case]
+    _same_columns(got, ref)
 
 
 def test_memory_by_stage():

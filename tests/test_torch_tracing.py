@@ -18,7 +18,10 @@
 - on a tiny methphase pass the counters count what they name: the
   decode's records (at least the distinct reads of the windows), the
   coverage scan's plain bytes (the BGZF blocks' ISIZE from the block the
-  header ends in to the file's end), the whole-BAM scans (one a miss of
+  header ends in to the file's end), its workers (the cores the process
+  may use), its slots (the block table's) and its waits for a slot (no
+  more than its slots; its workers are the cores over the group's ranks,
+  at least -T), the whole-BAM scans (one a miss of
   the coverage cache, none a hit), and the benchmark's five readers of
   them read a value; one process enters none of the spans and counters
   of several processes' all-gathers and manifest merge;
@@ -40,8 +43,9 @@ import torch
 from pomfret_tpu_torch import testing
 from pomfret_tpu_torch.cli import main as port_main
 from pomfret_tpu_torch.core.readset import ChromReadSource, MmrConfig
-from pomfret_tpu_torch.io.bam import BamReader
+from pomfret_tpu_torch.io.bam import BamReader, scan_workers
 from pomfret_tpu_torch.kernels import engine_torch
+from pomfret_tpu_torch.parallel import distributed
 from pomfret_tpu_torch.parallel.batch import DISPATCH_STATS
 from pomfret_tpu_torch.pipeline import estimate_read_coverage_cached
 from pomfret_tpu_torch.utils import stats
@@ -329,6 +333,42 @@ def test_scan_plain_bytes_are_the_blocks_after_the_header(one_pass):
         end -= isize[b]
         b += 1
     assert one_pass["counters"]["scan_plain_bytes"] == sum(isize[b:])
+
+
+def _slots(path, slot_bytes):
+    """The scan's slots in `path`: from the block the header ends in, runs
+    of consecutive blocks of at most slot_bytes plain bytes, a block at
+    least."""
+    isize = _isizes(path)
+    end, b, n = _header_len(path), 0, 0
+    while end > isize[b]:
+        end -= isize[b]
+        b += 1
+    while b < len(isize):
+        size, b = isize[b], b + 1
+        while b < len(isize) and size + isize[b] <= slot_bytes:
+            size, b = size + isize[b], b + 1
+        n += 1
+    return n
+
+
+def test_scan_counters_say_how_the_pipeline_engaged(one_pass):
+    got = one_pass["counters"]
+    # one process, -T 1: the cores it may run on
+    assert got["scan_workers"] == len(os.sched_getaffinity(0))
+    assert got["scan_slots"] == _slots(one_pass["bam"], BamReader.SCAN_SLOT)
+    assert got["scan_slots"] > 1
+    assert 0 <= got["scan_slot_waits"] <= got["scan_slots"]
+
+
+@pytest.mark.parametrize("procs, threads, want", [(1, 1, 8), (4, 1, 2),
+                                                   (16, 1, 1), (4, 16, 16)])
+def test_scan_workers_share_the_cores_over_the_group(monkeypatch, procs,
+                                                     threads, want):
+    # 8 cores: the group's ranks share them, -T asks for more
+    monkeypatch.setattr(os, "sched_getaffinity", lambda pid: set(range(8)))
+    monkeypatch.setattr(distributed, "process_count", lambda: procs)
+    assert scan_workers(threads) == want
 
 
 def test_coverage_scans_count_the_cache_misses(one_pass, scenario, tmp_path,
